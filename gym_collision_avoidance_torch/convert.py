@@ -1,0 +1,46 @@
+"""State carried across from the JAX package, as numpy arrays.
+
+The "parameters" of the main path are its state and its scenario pool
+(NonCoop has no weights).  :func:`state_from_numpy` builds the port's
+:class:`EnvState` from the leaves of a batched JAX ``EnvState`` (the caller
+runs ``jax.device_get``, so this package never imports jax), and
+:func:`state_to_numpy` converts back for comparison.  Loading the
+GA3C-CADRL weights belongs to ROADMAP.md §1 item 9.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from gym_collision_avoidance_torch.core.device import resolve_device
+from gym_collision_avoidance_torch.core.state import EnvState
+
+_INT_LEAVES = ("step_num", "num_other_agents_observed", "laserscan_count",
+               "policy_id", "dynamics_id", "episode_step")
+
+
+def state_from_numpy(leaves: Dict[str, np.ndarray], device=None) -> EnvState:
+    """An :class:`EnvState` from ``{field name: [E, A, ...] array}``.
+
+    Floats keep their dtype, counters and ids become int32, flags bool and
+    the ``[E, 2]`` uint32 PRNG key words int64.  ``device=None`` means CUDA.
+    """
+    device = resolve_device(device)
+    out = {}
+    for f in dataclasses.fields(EnvState):
+        arr = np.asarray(leaves[f.name])
+        if f.name == "rng":
+            arr = arr.astype(np.int64)
+        elif f.name in _INT_LEAVES:
+            arr = arr.astype(np.int32)
+        out[f.name] = torch.as_tensor(np.array(arr, copy=True), device=device)
+    return EnvState(**out)
+
+
+def state_to_numpy(state: EnvState) -> Dict[str, np.ndarray]:
+    """``{field name: numpy array}`` of a state, on the host."""
+    return {name: leaf.detach().cpu().numpy() for name, leaf in state.items()}

@@ -1,0 +1,32 @@
+"""Device selection for the port's entry points.
+
+Entry points take ``device=None``, which means the CUDA card.  There is no
+silent fallback: without CUDA the default raises, and a caller who wants the
+CPU (the tests) says so.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``; raise if CUDA is asked for and absent.
+
+    On the card this also turns TF32 off for matmuls and cuDNN, the GPU's
+    counterpart of the TPU's silent bf16 operand rounding.
+    """
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU"
+            )
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``EnvConfig.dtype`` string -> torch dtype."""
+    return {"float32": torch.float32, "float64": torch.float64}[name]

@@ -1,0 +1,130 @@
+"""Batched math (port of :mod:`gym_collision_avoidance_tpu.core.maths`).
+
+All functions broadcast over leading axes; the last axis of a vector is
+``(x, y)``.  XLA's and torch's ``atan2`` / ``sin`` / ``cos`` differ by ulps,
+so floats agree with the JAX package to a tolerance, not bitwise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_TWO_PI = 2.0 * math.pi
+
+# Named for the error messages of the pieces that are not ported yet.
+STRICT_PARITY_ITEM = "ROADMAP.md §1 item 2 (strict-parity host route)"
+
+
+def wrap(angle: torch.Tensor) -> torch.Tensor:
+    """Wrap angle(s) to ``[-pi, pi)`` with the reference's unrolled
+    subtract/add steps (``envs/util.py:141-146``)."""
+    for _ in range(3):
+        angle = torch.where(angle >= math.pi, angle - _TWO_PI, angle)
+        angle = torch.where(angle < -math.pi, angle + _TWO_PI, angle)
+    return angle
+
+
+def arctan2(y: torch.Tensor, x: torch.Tensor, exact: bool = False) -> torch.Tensor:
+    """``atan2``; the JAX package's ``exact=True`` host-numpy route is not
+    ported."""
+    if exact:
+        raise NotImplementedError(f"cfg.strict_parity: {STRICT_PARITY_ITEM}")
+    return torch.atan2(y, x)
+
+
+def l2norm(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """sqrt(dx^2 + dy^2), elementwise (envs/util.py:17-21)."""
+    return torch.sqrt(dx * dx + dy * dy)
+
+
+def norm2(vec: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm of ``[..., 2]`` vectors, summed as ``x*x + y*y``."""
+    return l2norm(vec[..., 0], vec[..., 1])
+
+
+def goal_frame_axes(pos: torch.Tensor, goal: torch.Tensor):
+    """Goal-aligned ego frame axes (``Agent.get_ref``, envs/agent.py:329-349).
+
+    Returns:
+        (ref_prll [..., 2], ref_orth [..., 2], dist_to_goal [...])
+    """
+    goal_direction = goal - pos
+    dist = norm2(goal_direction)
+    safe = torch.clamp(dist, min=1e-30)
+    ref_prll = torch.where(
+        (dist > 1e-8)[..., None], goal_direction / safe[..., None], goal_direction
+    )
+    ref_orth = torch.stack([-ref_prll[..., 1], ref_prll[..., 0]], dim=-1)
+    return ref_prll, ref_orth, dist
+
+
+def compute_time_to_impact(host_pos, other_pos, host_vel, other_vel, combined_radius):
+    """Analytic time-to-collision via collision-cone tangents
+    (``envs/util.py:23-112``), branch-free.  0 when already overlapping,
+    +inf when the relative velocity is outside the cone or (near) zero."""
+    v_rel = host_vel - other_vel
+    xp, yp = host_pos[..., 0], host_pos[..., 1]
+    a, b = other_pos[..., 0], other_pos[..., 1]
+    r = combined_radius
+
+    dx, dy = xp - a, yp - b
+    den = dx * dx + dy * dy
+    sq_dist_to_perimeter = den - r * r
+    already_colliding = sq_dist_to_perimeter < 0
+
+    sqrt_term = torch.sqrt(torch.clamp(sq_dist_to_perimeter, min=0.0))
+    safe_den = torch.clamp(den, min=1e-30)
+    # Tangent points on the collision circle (envs/util.py:95-106).
+    xnum1 = r * r * dx
+    xnum2 = r * dy * sqrt_term
+    ynum1 = r * r * dy
+    ynum2 = r * dx * sqrt_term
+    vec1_x = (xnum1 + xnum2) / safe_den + a - xp
+    vec1_y = (ynum1 - ynum2) / safe_den + b - yp
+    vec2_x = (xnum1 - xnum2) / safe_den + a - xp
+    vec2_y = (ynum1 + ynum2) / safe_den + b - yp
+    v0, v1 = v_rel[..., 0], v_rel[..., 1]
+
+    def cross(ux, uy, vx, vy):
+        return ux * vy - uy * vx
+
+    # Is v_rel inside the cone spanned by vec1, vec2? (envs/util.py:39-40)
+    inside = (cross(vec1_x, vec1_y, v0, v1) * cross(vec1_x, vec1_y, vec2_x, vec2_y) >= 0) & (
+        cross(vec2_x, vec2_y, v0, v1) * cross(vec2_x, vec2_y, vec1_x, vec1_y) >= 0
+    )
+    moving = (torch.abs(v0) >= 1e-5) | (torch.abs(v1) >= 1e-5)
+
+    # Distance from host to the circle along v_rel (envs/util.py:41-79):
+    # the generic and the vertical quadratic, solved branch-free.
+    vertical = torch.abs(v0) < 1e-5
+    slope = v1 / torch.where(vertical, torch.ones_like(v0), v0)
+    A_g = 1 + slope * slope
+    B_g = -2 * a + 2 * slope * (yp - b - slope * xp)
+    t = slope * xp - (yp - b)
+    C_g = a * a - r * r + t * t
+    det_g = torch.clamp(B_g * B_g - 4 * A_g * C_g, min=0.0)
+    x1 = (-B_g + torch.sqrt(det_g)) / (2 * A_g)
+    x2 = (-B_g - torch.sqrt(det_g)) / (2 * A_g)
+    y1 = slope * (x1 - xp) + yp
+    y2 = slope * (x2 - xp) + yp
+
+    B_v = -2 * b
+    u = xp - a
+    C_v = b * b + u * u - r * r
+    det_v = torch.clamp(B_v * B_v - 4 * C_v, min=0.0)
+    yv1 = (-B_v + torch.sqrt(det_v)) / 2
+    yv2 = (-B_v - torch.sqrt(det_v)) / 2
+
+    x1 = torch.where(vertical, xp, x1)
+    x2 = torch.where(vertical, xp, x2)
+    y1 = torch.where(vertical, yv1, y1)
+    y2 = torch.where(vertical, yv2, y2)
+
+    d = torch.minimum(l2norm(x1 - xp, y1 - yp), l2norm(x2 - xp, y2 - yp))
+    ttc = d / torch.clamp(norm2(v_rel), min=1e-30)
+
+    inf = torch.full_like(ttc, math.inf)
+    out = torch.where(inside & moving, ttc, inf)
+    return torch.where(already_colliding, torch.zeros_like(out), out)

@@ -1,0 +1,132 @@
+"""Serving loop: continuous batched episodes with auto-reset (port of
+:mod:`gym_collision_avoidance_tpu.harness.serving`).
+
+Example::
+
+    server = AutoresetServer(cfg, pool, policy_id, num_envs=16384)
+    for _ in range(100):
+        out = server.dispatch()        # enqueues S steps on the card
+    print(server.episodes_completed()) # syncs
+
+``dispatch`` runs ``steps_per_dispatch`` steps in a Python loop of eager
+PyTorch calls and returns per-step stacked outputs ``[S, ...]``: the
+requested ``collect`` obs keys, ``mean_reward`` and ``obs_checksum``.  It
+does not synchronise; reading a value does.  Sharding over a device mesh
+(ROADMAP.md §1 item 16) and the laserscan guard (item 12) are not ported.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gym_collision_avoidance_torch.config import EnvConfig
+from gym_collision_avoidance_torch.core.device import resolve_device
+from gym_collision_avoidance_torch.env import autoreset
+from gym_collision_avoidance_torch.obs import spec as obs_spec
+
+
+class AutoresetServer:
+    """Continuous steady-state serving of batched episodes.
+
+    Args:
+        cfg: env config.
+        pool: ``[N, A, 6]`` (or ``[N, A, 7]``) scenario pool, as made by
+            ``scenarios.random_cases.scenario_pool``.
+        policy_id: ``[A]`` int policy ids applied to every episode.
+        num_envs: batch width E.
+        steps_per_dispatch: env steps per :meth:`dispatch` (S).
+        collect: obs keys returned stacked per dispatch.
+        active_policies / params / sensors / states_in_obs: as in
+            :func:`env.autoreset.make_autoreset_step`.
+        device: ``None`` means CUDA (raises if it is absent).
+    """
+
+    def __init__(
+        self,
+        cfg: EnvConfig,
+        pool,
+        policy_id,
+        num_envs: int = 4096,
+        steps_per_dispatch: int = 256,
+        collect: Tuple[str, ...] = (),
+        active_policies: Optional[Tuple[int, ...]] = None,
+        params=None,
+        sensors: Sequence[str] = ("other_agents_states",),
+        states_in_obs: Sequence[str] = obs_spec.DEFAULT_STATES_IN_OBS,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        pool = np.asarray(pool)
+        policy_id = np.asarray(policy_id, np.int32)
+        if active_policies is None:
+            active_policies = tuple(sorted({int(p) for p in policy_id}))
+        self._step = autoreset.make_autoreset_step(
+            cfg, pool, policy_id, active_policies, tuple(sensors),
+            tuple(states_in_obs), params, device=self.device,
+        )
+        self.num_envs = int(num_envs)
+        self.steps_per_dispatch = int(steps_per_dispatch)
+        self.collect = tuple(collect)
+        self._n_agents = int(policy_id.shape[0])
+        N = pool.shape[0]
+        self._states = autoreset.state_from_case(
+            cfg, pool[np.arange(self.num_envs) % N], policy_id, device=self.device
+        )
+        self._counters = torch.arange(self.num_envs, dtype=torch.int32,
+                                      device=self.device)
+
+    def dispatch(self):
+        """Run S steps; returns stacked ``[S, ...]`` outputs without
+        synchronising."""
+        outs = {k: [] for k in self.collect}
+        rewards, checksums = [], []
+        st, c = self._states, self._counters
+        for _ in range(self.steps_per_dispatch):
+            st, c, obs, rew, _go, _info = self._step(st, c)
+            for k in self.collect:
+                outs[k].append(obs[k])
+            rewards.append(rew.sum(dim=-1))                  # [E]
+            checksums.append(obs["dist_to_goal"].sum(dim=-1))  # [E, A]
+        self._states, self._counters = st, c
+        out = {k: torch.stack(v) for k, v in outs.items()}
+        out["mean_reward"] = torch.stack(rewards).mean(dim=1) / self._n_agents
+        out["obs_checksum"] = torch.stack(checksums).sum(dim=1)
+        return out
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def states(self):
+        """Current ``[E, A]`` env states, synchronised."""
+        self._sync()
+        return self._states
+
+    def episodes_completed(self) -> int:
+        """Total episodes finished since construction (syncs), summed in
+        int64 on the host."""
+        counters = self._counters.cpu().numpy().astype(np.int64)
+        return int(np.sum(counters - np.arange(self.num_envs, dtype=np.int64)))
+
+    def throughput(self, reps: int = 3, pipeline: int = 8):
+        """Measured steady-state env-steps/s: median of ``reps``, each
+        timing ``pipeline`` dispatches, host clock around work that ends in
+        ``torch.cuda.synchronize()``."""
+        self.dispatch()           # warmup
+        self._sync()
+        rates = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _p in range(pipeline):
+                self.dispatch()
+            self._sync()
+            rates.append(
+                pipeline * self.num_envs * self.steps_per_dispatch
+                / (time.perf_counter() - t0)
+            )
+        rates.sort()
+        return rates[len(rates) // 2]

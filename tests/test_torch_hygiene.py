@@ -1,0 +1,56 @@
+"""The port stands alone: importing every module of
+``gym_collision_avoidance_torch`` pulls in neither jax nor the JAX package,
+and its entry points refuse to fall back to the CPU when CUDA is absent."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import gym_collision_avoidance_torch as pkg
+for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(mod.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "gym_collision_avoidance_tpu"))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_port_imports_no_jax():
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=repo_root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from gym_collision_avoidance_torch import EnvConfig, init_state
+    from gym_collision_avoidance_torch.env import autoreset
+    from gym_collision_avoidance_torch.harness import runner
+    from gym_collision_avoidance_torch.harness.serving import AutoresetServer
+    from gym_collision_avoidance_torch.scenarios import random_cases
+
+    cfg = EnvConfig(dtype="float32")
+    pool = random_cases.scenario_pool(4, 4, seed=0)
+    pid = np.full(4, 2, np.int32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AutoresetServer(cfg, pool, pid, num_envs=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        autoreset.state_from_case(cfg, pool, pid)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_state(cfg, pool[..., 0:2], pool[..., 2:4], pool[..., 5], pool[..., 4])
+    st = autoreset.state_from_case(cfg, pool, pid, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.rollout(st, cfg, 1)
