@@ -6,18 +6,32 @@ toolkit (``nvcc`` under ``/usr/local/cuda`` or on ``PATH``)::
 
     python3 chip_smoke.py
 
-It builds every hand-written kernel of the port from ``csrc/``, holds each
-against its plain PyTorch version on the card, drives the main path (the
-4-agent NonCoop auto-reset serving loop that ``bench.py`` times, at
-E = 16384 envs) through ``AutoresetServer``, and compares one env step on the
-card with the same step on the CPU.  Every phase raises on failure, so the
-exit code is 0 only if all passed.  The last three lines of its output are
-the kernels' JSON summary, the card's ``nvidia-smi`` name and power limit,
-and ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+It builds every hand-written kernel of the port from ``csrc/`` (one ``nvcc``
+for each source, all started together) and holds each against its plain
+PyTorch version on the card.  Then it drives the port's paths through
+``AutoresetServer``, each with the kernel launch counts set to 0 just before
+and read just after:
+
+* the main path: the 4-agent NonCoop auto-reset serving loop that
+  ``bench.py`` times, at E = 16384 envs (kernel K1);
+* the laser path, full pass: the ``ga3c20_laser`` configuration of
+  ``scripts/bench_all.py`` (20 agents, 512 beams, the empty 20 x 20 m map,
+  E = 256) with NonCoop agents and no fast route (kernels K1 and K2);
+* the laser path, fast route: the same with its wedge culling, 12-sample
+  windows and 4 beam slots (kernels K1 and K3).
+
+It checks the fast route against the full pass wherever its exactness guard
+is quiet, and one env step on the card against the same step on the CPU,
+on the main path and on both laser routes.  Every phase raises on failure,
+so the exit code is 0 only if all passed.  The last three lines of its
+output are the kernels' JSON summary, the card's ``nvidia-smi`` name and
+power limit, and ``{"ok": true, "device": {...}}``.  It imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -33,6 +47,10 @@ F32_FLOPS = 67e12        # float32 outside the tensor cores
 DEVICE = "cuda"
 E_MAIN, A_MAIN = 16384, 4
 STEPS_PER_DISPATCH, DISPATCHES = 128, 4
+# the laser path (scripts/bench_all.py:bench_ga3c20_laser: 4096 // 16 envs)
+E_LASER, A_LASER, L_LASER = 256, 20, 512
+LASER_STEPS, LASER_DISPATCHES = 64, 4
+KERNEL_SOURCES = ("pairwise", "raymarch", "laser_fused")
 
 
 def check(cond, msg):
@@ -109,14 +127,17 @@ def pairwise_inputs(seed, E, A, dtype, device, nan=False):
             torch.tensor(valid, device=device))
 
 
-def phase_kernels(pairwise, build):
-    """Build K1 and hold it bitwise against the plain version; time both at
-    the main path's shape, on the device (CUDA graph replay) and as eager
-    calls."""
+def phase_build(build):
+    """Build every kernel, one nvcc per source, all started together."""
     t0 = time.perf_counter()
-    build.build(["pairwise"])
-    print(f"build: pairwise.cu in {time.perf_counter() - t0:.1f} s", flush=True)
+    build.build(KERNEL_SOURCES)
+    print(f"build: {', '.join(n + '.cu' for n in KERNEL_SOURCES)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+
+def phase_kernels(pairwise):
+    """Hold K1 bitwise against the plain version; time both at the main
+    path's shape, on the device (CUDA graph replay) and as eager calls."""
     worst = 0.0
     cases = [(torch.float32, E_MAIN, A_MAIN, False), (torch.float32, 512, 40, False),
              (torch.float64, 64, 4, False), (torch.float32, 64, 4, True)]
@@ -243,22 +264,389 @@ def phase_card_vs_cpu():
                                       "discrete_equal": True}}), flush=True)
 
 
+# ---------------------------------------------------------------- laser path
+
+@contextlib.contextmanager
+def capture(module, name, calls):
+    """Record the arguments of every call of ``module.name``."""
+    orig = getattr(module, name)
+
+    def spy(*args):
+        calls.append(args)
+        return orig(*args)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def bitwise_equal(a, b):
+    itype = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(itype),
+                                                                     b.view(itype))
+
+
+def laser_config(fast, dtype="float32", **overrides):
+    """``scripts/bench_all.py:bench_ga3c20_laser``'s EnvConfig; ``fast=False``
+    drops its wedge, window and beam slots (the full pass, K2)."""
+    from gym_collision_avoidance_torch import EnvConfig
+
+    kw = dict(dtype=dtype, max_num_other_agents_observed=19,
+              agent_sorting_method="closest_last", use_static_map=True,
+              map_x_width=20.0, map_y_width=20.0, laserscan_length=L_LASER)
+    if fast:
+        kw.update(laserscan_num_candidate_discs=9, laserscan_entry_window=12,
+                  laserscan_beam_slots=4)
+    kw.update(overrides)
+    return EnvConfig(**kw)
+
+
+def laser_pool():
+    """The one-case pool: ``circle_scenario(20, radius=8.0, agent_radius=0.3)``."""
+    from gym_collision_avoidance_torch.scenarios import presets
+
+    sc = presets.circle_scenario(A_LASER, radius=8.0, agent_radius=0.3)
+    rows = np.concatenate([sc.pos, sc.goal, sc.pref_speed[:, None], sc.radius[:, None]], -1)
+    return rows[None]
+
+
+def static_inputs(cfg, map_name=None, pad=0):
+    from gym_collision_avoidance_torch.maps import grid
+
+    static = grid.load_static_map(cfg, None if map_name is None else grid.world_map_path(map_name))
+    cells = grid.occupied_cell_list(static, int(static.sum()) + pad)
+    return (torch.as_tensor(static, device=DEVICE), torch.as_tensor(cells, device=DEVICE))
+
+
+def laser_states(cfg, E, seed, device, A=A_LASER, odd=False):
+    """Seeded states of the circle scenario shrunk to a random radius in
+    [0.8, 8] m and turned by a random angle per env, with jitter and random
+    headings, so that beams meet discs at every range."""
+    from gym_collision_avoidance_torch import init_state
+
+    rng = np.random.RandomState(seed)
+    ang = 2 * np.pi * np.arange(A) / A
+    unit = np.stack([np.cos(ang), np.sin(ang)], -1)
+    scale = rng.uniform(0.8, 8.0, (E, 1, 1))
+    turn = rng.uniform(0, 2 * np.pi, (E, 1))
+    rot = np.stack([np.cos(turn), -np.sin(turn), np.sin(turn), np.cos(turn)], -1).reshape(E, 1, 2, 2)
+    pos = scale * np.einsum("eaij,aj->eai", np.broadcast_to(rot, (E, A, 2, 2)), unit)
+    pos = pos + rng.uniform(-0.2, 0.2, pos.shape)
+    valid = np.ones((E, A), bool)
+    if odd:                       # invalid agents and agents off the map
+        valid = rng.rand(E, A) > 0.2
+        pos[::2, 0] = [cfg.map_x_width / 2 + 0.7, 0.0]
+        pos[1::3, 1] = [0.0, -cfg.map_y_width / 2 - 0.4]
+    return init_state(cfg, pos, -pos, np.full((E, A), 0.3), np.ones((E, A)),
+                      heading=rng.uniform(-np.pi, np.pi, (E, A)), valid=valid, device=device)
+
+
+def k2_bound(args, out, cfg):
+    """Least device time of one K2 launch: bytes read and written once, and
+    the operations this run's data needs (a beam marches up to its second
+    hit), whichever is larger."""
+    from gym_collision_avoidance_torch.ops import raymarch
+
+    moved = sum(t.numel() * t.element_size() for t in args if torch.is_tensor(t))
+    moved += out.numel() * out.element_size()
+    R = raymarch.LASER_NUM_RANGE_SAMPLES
+    ans = torch.round(out.double() / raymarch.LASER_RANGE_RESOLUTION).long()
+    second = (out < raymarch.LASER_MAX_RANGE) & (ans < R - 1)
+    samples = float(torch.where(second, ans + 2, R).sum())
+    A, S = args[6].shape[-1], args[9].shape[0]
+    # per sample: position, cell and map test ~20, host disc 7, each disc 7,
+    # each static cell 2
+    ops = samples * (27 + 7 * A + 2 * S)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_k2():
+    """K2 against its plain version, bitwise, on the card; timed at the
+    laser path's full width."""
+    from gym_collision_avoidance_torch.obs import sensors
+    from gym_collision_avoidance_torch.ops import raymarch
+
+    cfg = laser_config(False)
+    cases = [("f32 full width, empty map", cfg, E_LASER, None, False),
+             ("f32, map 002 (84 cells + 16 padding rows)", cfg, 32, "002", False),
+             ("f64", laser_config(False, "float64"), 8, None, False),
+             ("f32, E*A = 35, invalid and off-map agents", cfg, 7, "002", True)]
+    worst, timed = 0.0, None
+    for i, (name, c, E, map_name, odd) in enumerate(cases):
+        _static, cells = static_inputs(c, map_name, pad=16 if map_name else 0)
+        state = laser_states(c, E, 10 + i, DEVICE, A=5 if odd else A_LASER, odd=odd)
+        calls = []
+        with capture(raymarch, "raymarch_cuda", calls):
+            out = sensors.laserscan_sparse(state, c, cells)
+        torch.cuda.synchronize()
+        check(len(calls) == 1, f"K2 {name}: the full pass did not launch K2")
+        ref = raymarch.raymarch_plain(*calls[0])
+        check(bitwise_equal(out, ref), f"K2 {name}: not bitwise equal to the plain version")
+        hits = int((ref < raymarch.LASER_MAX_RANGE).sum())
+        check(hits > 0, f"K2 {name}: no beam hit anything")
+        worst = max(worst, max_abs_err(out, ref))
+        print(f"K2 {name} (E={E}): bitwise equal, {hits} of {ref.numel()} beams hit",
+              flush=True)
+        if timed is None:
+            timed = (calls[0], out)
+    args, out = timed
+    ms = graph_ms(lambda: raymarch.raymarch_cuda(*args), inner=5)
+    plain_ms = graph_ms(lambda: raymarch.raymarch_plain(*args), inner=2)
+    bound_ms, bound_by = k2_bound(args, out, cfg)
+    print(json.dumps({"kernel": "raymarch", "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                      "launches_per_step": 1, "shape": [E_LASER, A_LASER, L_LASER]}),
+          flush=True)
+    return {"name": "raymarch", "route": "cuda",
+            "source": "gym_collision_avoidance_torch/csrc/raymarch.cu",
+            "replaces": "gym_collision_avoidance_tpu/ops/raymarch.py:173",
+            "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def k3_bound(args):
+    """Least device time of one K3 launch, from this run's data: bytes read
+    and written once; per beam, the screen of every usable source and the
+    window samples of its kept ones."""
+    from gym_collision_avoidance_torch.ops import laser_fused
+
+    (pos_e, _gie, _gje, _rsqe, cos_a, sin_a, _gid, _gjd, _irsq, relx, rely, rel2, ro2,
+     span_ok, cfg, Wn, Cs) = args
+    _H, _W, _oi, _oj, _ic, _res, _ir, t_max = laser_fused.consts(cfg, pos_e.dtype)
+    moved = sum(t.numel() * t.element_size() for t in args if torch.is_tensor(t))
+    moved += cos_a.numel() * (cos_a.element_size() + 1)            # ranges + flags
+    E, Ae, L = cos_a.shape
+    B, S = relx.shape[2:]
+    c = cos_a.reshape(E, Ae, B, 1, -1)
+    s = sin_a.reshape(E, Ae, B, 1, -1)
+    t_c = relx[..., None] * c + rely[..., None] * s
+    disc = ro2[..., None] - (rel2[..., None] - t_c * t_c)
+    half = torch.sqrt(torch.clamp(disc, min=0.0))
+    rel = (disc > 0) & (t_c + half >= 0) & (t_c - half <= t_max) & span_ok[..., None]
+    kept = float(torch.clamp(rel.sum(dim=3), max=Cs).sum())
+    screened = float(span_ok.sum()) * L / B
+    # a screened source ~15 operations, a window sample ~25
+    ops = 15 * screened + 25 * Wn * kept
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_k3():
+    """K3 against its plain version, bitwise (ranges and overflow flags), on
+    the card; timed at the fast route's full width."""
+    from gym_collision_avoidance_torch.obs import sensors
+    from gym_collision_avoidance_torch.ops import laser_fused
+
+    cfg = laser_config(True)
+    cases = [("f32 full width, empty map", cfg, E_LASER, None, False),
+             ("f32, Cs = 1 (slots overflow)", laser_config(True, laserscan_beam_slots=1),
+              32, None, False),
+             ("f32, map 002 cells", cfg, 32, "002", False),
+             ("f64", laser_config(True, "float64"), 8, None, False),
+             ("f32, invalid and off-map agents", cfg, 7, "002", True)]
+    worst, timed, overflowed = 0.0, None, {}
+    for i, (name, c, E, map_name, odd) in enumerate(cases):
+        _static, cells = static_inputs(c, map_name, pad=16 if map_name else 0)
+        state = laser_states(c, E, 20 + i, DEVICE, odd=odd)
+        calls = []
+        with capture(laser_fused, "beam_compacted_cuda", calls):
+            sensors.laserscan_sparse(state, c, cells, return_overflow=True)
+        torch.cuda.synchronize()
+        check(len(calls) == 1, f"K3 {name}: the fast route did not launch K3")
+        out, ovf = laser_fused.beam_compacted_cuda(*calls[0])
+        ref, ref_ovf = laser_fused.beam_compacted_plain(*calls[0])
+        torch.cuda.synchronize()
+        check(bitwise_equal(out, ref), f"K3 {name}: ranges not bitwise equal")
+        check(torch.equal(ovf, ref_ovf), f"K3 {name}: overflow flags differ")
+        worst = max(worst, max_abs_err(out, ref))
+        overflowed[name] = int(ref_ovf.sum())
+        print(f"K3 {name} (E={E}): bitwise equal, {int((ref < 6.0).sum())} of {ref.numel()} "
+              f"beams hit, {overflowed[name]} beams overflow their slots", flush=True)
+        if timed is None:
+            timed = calls[0]
+    check(overflowed["f32, Cs = 1 (slots overflow)"] > 0, "the Cs = 1 case should overflow")
+    ms = graph_ms(lambda: laser_fused.beam_compacted_cuda(*timed))
+    plain_ms = graph_ms(lambda: laser_fused.beam_compacted_plain(*timed), inner=5)
+    bound_ms, bound_by = k3_bound(timed)
+    print(json.dumps({"kernel": "laser_fused", "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                      "launches_per_step": 1, "shape": [E_LASER, A_LASER, L_LASER]}),
+          flush=True)
+    return {"name": "laser_fused", "route": "cuda",
+            "source": "gym_collision_avoidance_torch/csrc/laser_fused.cu",
+            "replaces": "gym_collision_avoidance_tpu/ops/laser_pallas.py:211",
+            "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_laser_serving(fast, kernels):
+    """Drive AutoresetServer on the laser path: the counts go to 0 after
+    construction, and K1 and the route's laser kernel must launch once per
+    step."""
+    from gym_collision_avoidance_torch.harness.serving import AutoresetServer
+    from gym_collision_avoidance_torch.policies import registry
+
+    cfg = laser_config(fast)
+    static, cells = static_inputs(cfg)
+    server = AutoresetServer(cfg, laser_pool(), np.full(A_LASER, registry.NONCOOP, np.int32),
+                             num_envs=E_LASER, steps_per_dispatch=LASER_STEPS,
+                             sensors=("other_agents_states", "laserscan"),
+                             states_in_obs=("num_other_agents", "dist_to_goal",
+                                            "heading_ego_frame", "pref_speed", "radius",
+                                            "other_agents_states", "laserscan"),
+                             static_map=static, static_cells=cells, device=DEVICE)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    server.dispatch()                                   # warm-up dispatch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LASER_DISPATCHES):
+        out = server.dispatch()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: k.LAUNCHES for n, k in kernels.items()}
+    steps = (LASER_DISPATCHES + 1) * LASER_STEPS
+    laser = "laser_fused" if fast else "raymarch"
+    idle = "raymarch" if fast else "laser_fused"
+    check(launches["pairwise"] == steps, f"K1 launched {launches['pairwise']} in {steps} steps")
+    check(launches[laser] == steps, f"{laser} launched {launches[laser]} in {steps} steps")
+    check(launches[idle] == 0, f"{idle} launched {launches[idle]} times")
+    for name, leaf in server.states().items():
+        if leaf.is_floating_point():
+            check(bool(torch.isfinite(leaf).all()), f"non-finite state leaf {name}")
+    check(bool(torch.isfinite(out["mean_reward"]).all()), "non-finite reward")
+    episodes = server.episodes_completed()
+    check(episodes > 0, "no episode completed")
+    timed = LASER_DISPATCHES * LASER_STEPS
+    line = {"num_envs": E_LASER, "agents": A_LASER, "beams": L_LASER, "steps": steps,
+            "timed_steps": timed, "seconds": seconds,
+            "env_steps_per_s": timed * E_LASER / seconds, "ms_per_step": 1e3 * seconds / timed,
+            "episodes_completed": episodes, "launches": launches}
+    if fast:
+        line["exactness_overflow"] = server.exactness_overflow()
+        line["steps_with_overflow"] = int(out["exactness_overflow"].sum())
+    print(json.dumps({"laser_serving_fast" if fast else "laser_serving_full": line}),
+          flush=True)
+    return launches[laser], server.states()
+
+
+def phase_fast_vs_full(states):
+    """Continue the full pass's trajectory for 64 steps; on every 8th step's
+    states the fast route's ranges equal the full pass's bitwise wherever
+    its guard is quiet."""
+    from gym_collision_avoidance_torch.env import autoreset
+    from gym_collision_avoidance_torch.obs import sensors
+    from gym_collision_avoidance_torch.policies import registry
+
+    full, fast = laser_config(False), laser_config(True)
+    static, cells = static_inputs(full)
+    pid = np.full(A_LASER, registry.NONCOOP, np.int32)
+    step = autoreset.make_autoreset_step(full, laser_pool(), pid, (registry.NONCOOP,),
+                                         ("other_agents_states", "laserscan"),
+                                         device=DEVICE, static_map=static, static_cells=cells)
+    counter = torch.arange(E_LASER, dtype=torch.int32, device=DEVICE)
+    tripped = compared = beams = 0
+    for t in range(1, 65):
+        states, counter = step(states, counter)[:2]
+        if t % 8:
+            continue
+        want = sensors.laserscan_sparse(states, full, cells)
+        got, ovf = sensors.laserscan_sparse(states, fast, cells, return_overflow=True)
+        quiet = ~ovf
+        check(bitwise_equal(got[quiet], want[quiet]),
+              f"step {t}: the fast route differs from the full pass where its guard is quiet")
+        tripped += int(ovf.sum())
+        compared += int(quiet.sum())
+        beams += int((want[quiet] < 6.0).sum())
+    check(compared > 0, "the guard tripped on every env state")
+    print(json.dumps({"fast_vs_full": {
+        "env_states": 8 * E_LASER, "guard_tripped": tripped, "compared_bitwise": compared,
+        "beams_hitting_in_compared": beams}}), flush=True)
+
+
+def phase_laser_card_vs_cpu():
+    """One laser env_step (map 002, E = 16) on the card and on the CPU from
+    the same states: discrete outputs equal, floats to rtol 1e-5 /
+    atol 1e-6, laserscan ranges equal on at least 99.99% of the entries
+    (float32 sin/cos differ by ulps between the devices)."""
+    from gym_collision_avoidance_torch import env_step
+    from gym_collision_avoidance_torch.policies import registry
+
+    E = 16
+    sensors = ("other_agents_states", "laserscan")
+    obs_keys = ("dist_to_goal", "radius", "other_agents_states", "laserscan")
+    result = {}
+    for fast in (False, True):
+        cfg = laser_config(fast)
+        static, cells = static_inputs(cfg, "002")
+        cpu_args = (static.cpu(), cells.cpu())
+        state = laser_states(cfg, E, 31, "cpu")
+        for _ in range(3):
+            state = env_step(state, None, cfg, None, (registry.NONCOOP,), sensors, obs_keys,
+                             *cpu_args)[0]
+        cpu = env_step(state, None, cfg, None, (registry.NONCOOP,), sensors, obs_keys,
+                       *cpu_args)
+        card = env_step(state.to(DEVICE), None, cfg, None, (registry.NONCOOP,), sensors,
+                        obs_keys, static, cells)
+        torch.cuda.synchronize()
+        pairs = [(f"state.{k}", v, getattr(card[0], k)) for k, v in cpu[0].items()]
+        pairs += [(f"obs.{k}", v, card[1][k]) for k, v in cpu[1].items()]
+        pairs += [("rewards", cpu[2], card[2]), ("game_over", cpu[3], card[3])]
+        pairs += [(f"info.{k}", v, card[4][k]) for k, v in cpu[4].items()]
+        worst, laser_diff, laser_n = 0.0, 0, 0
+        for name, want, got in pairs:
+            got = got.cpu()
+            check(got.shape == want.shape and got.dtype == want.dtype, f"{name} shape/dtype")
+            if name in ("state.laserscan_history", "obs.laserscan"):
+                laser_diff += int((got != want).sum())
+                laser_n += want.numel()
+            elif want.is_floating_point():
+                check(torch.allclose(got, want, rtol=1e-5, atol=1e-6, equal_nan=True),
+                      f"{name} differs beyond rtol 1e-5 / atol 1e-6")
+                worst = max(worst, max_abs_err(got, want))
+            else:
+                check(torch.equal(got, want), f"{name} differs")
+        check(laser_diff <= 1e-4 * laser_n, f"laserscan: {laser_diff} of {laser_n} differ")
+        check(bool(cpu[0].in_collision.any()), "the compared step should hold collisions")
+        result["fast" if fast else "full"] = {
+            "envs": E, "max_abs_err": worst, "laser_entries_differing": laser_diff,
+            "laser_entries": laser_n, "wall_or_agent_collisions": int(cpu[0].in_collision.sum()),
+            "discrete_equal": True}
+    print(json.dumps({"laser_card_vs_cpu": result}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
               file=sys.stderr)
         return 1
-    from gym_collision_avoidance_torch.ops import build, pairwise
+    from gym_collision_avoidance_torch.ops import build, laser_fused, pairwise, raymarch
 
     smi = nvidia_smi_line()
     print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible", flush=True)
+    kernels = {"pairwise": pairwise, "raymarch": raymarch, "laser_fused": laser_fused}
 
-    k1 = phase_kernels(pairwise, build)
+    phase_build(build)
+    k1 = phase_kernels(pairwise)
+    k2 = phase_k2()
+    k3 = phase_k3()
+    for k in kernels.values():
+        k.LAUNCHES = 0
     k1["launches"] = phase_serving(pairwise)
+    check(raymarch.LAUNCHES == 0 and laser_fused.LAUNCHES == 0,
+          "the main path launched a laser kernel")
     phase_card_vs_cpu()
+    k2["launches"], states = phase_laser_serving(False, kernels)
+    k3["launches"], _ = phase_laser_serving(True, kernels)
+    phase_fast_vs_full(states)
+    phase_laser_card_vs_cpu()
 
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,10 @@ The "parameters" of the main path are its state and its scenario pool
 (NonCoop has no weights).  :func:`state_from_numpy` builds the port's
 :class:`EnvState` from the leaves of a batched JAX ``EnvState`` (the caller
 runs ``jax.device_get``, so this package never imports jax), and
-:func:`state_to_numpy` converts back for comparison.  Loading the
+:func:`state_to_numpy` converts back for comparison.  Every leaf goes both
+ways, the laser ones included (``laserscan_history`` ``[E, A, P, L]`` in
+the state's dtype, ``laserscan_count`` int32); the static map and its cell
+list are numpy arrays both packages take as they are.  Loading the
 GA3C-CADRL weights belongs to ROADMAP.md §1 item 9.
 """
 

@@ -7,6 +7,7 @@ CPU (the tests) says so.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -30,3 +31,11 @@ def resolve_device(device=None) -> torch.device:
 def torch_dtype(name: str) -> torch.dtype:
     """``EnvConfig.dtype`` string -> torch dtype."""
     return {"float32": torch.float32, "float64": torch.float64}[name]
+
+
+def as_device_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """``x`` (array-like or tensor) as a ``dtype`` tensor on ``device``; no
+    copy when it is one already, so a caller that moves its inputs once
+    keeps the card's queue free of host copies."""
+    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x), dtype=dtype,
+                           device=device)

@@ -23,9 +23,6 @@ from gym_collision_avoidance_torch.core.device import resolve_device, torch_dtyp
 # (reference: envs/agent.py:38 `num_actions_to_store = 2`).
 NUM_PAST_ACTIONS = 2
 
-MAPS_ITEM = "ROADMAP.md §1 items 11-12 (static maps, laserscan, occupancy grid)"
-
-
 @dataclasses.dataclass
 class EnvState:
     """All mutable simulation state for a batch of E envs.
@@ -62,7 +59,7 @@ class EnvState:
     other_agent_states: torch.Tensor  # [E, A, 7]
     sensed_others: torch.Tensor  # [E, A, K, 7]
     num_other_agents_observed: torch.Tensor  # [E, A] int32
-    laserscan_history: torch.Tensor  # [E, A, 0, 0] (laserscan not ported)
+    laserscan_history: torch.Tensor  # [E, A, P, L] with a static map, else [E, A, 0, 0]
     laserscan_count: torch.Tensor    # [E, A] int32
     policy_id: torch.Tensor      # [E, A] int32
     dynamics_id: torch.Tensor    # [E, A] int32
@@ -117,8 +114,6 @@ def init_state(
     NaN headings point at the goal (envs/agent.py:79-83).
     ``device=None`` means CUDA.
     """
-    if cfg.use_static_map:
-        raise NotImplementedError(f"cfg.use_static_map: {MAPS_ITEM}")
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
 
@@ -202,7 +197,8 @@ def init_state(
         other_agent_states=zeros(E, A, 7),
         sensed_others=zeros(E, A, K, 7),
         num_other_agents_observed=zeros(E, A, dt=torch.int32),
-        laserscan_history=zeros(E, A, 0, 0),
+        laserscan_history=(zeros(E, A, cfg.laserscan_num_past, cfg.laserscan_length)
+                           if cfg.use_static_map else zeros(E, A, 0, 0)),
         laserscan_count=zeros(E, A, dt=torch.int32),
         policy_id=policy_id,
         dynamics_id=dynamics_id,
@@ -210,3 +206,10 @@ def init_state(
         episode_step=zeros(E, dt=torch.int32),
         rng=rng,
     )
+
+
+def apply_external_states(state: EnvState, cfg: EnvConfig, pos, vel=None, heading=None,
+                          mask=None) -> EnvState:
+    """Inject externally measured states (``Agent.set_state``,
+    envs/agent.py:155-190).  Not ported yet."""
+    raise NotImplementedError(f"apply_external_states: {maths.STRICT_PARITY_ITEM}")

@@ -17,7 +17,11 @@ import numpy as np
 import torch
 
 from gym_collision_avoidance_torch.config import EnvConfig
-from gym_collision_avoidance_torch.core.device import resolve_device, torch_dtype
+from gym_collision_avoidance_torch.core.device import (
+    as_device_tensor,
+    resolve_device,
+    torch_dtype,
+)
 from gym_collision_avoidance_torch.core.state import EnvState, init_state
 from gym_collision_avoidance_torch.env.step import env_reset, env_step
 from gym_collision_avoidance_torch.obs import spec as obs_spec
@@ -61,6 +65,9 @@ def make_autoreset_step(
     states_in_obs: Tuple[str, ...] = obs_spec.DEFAULT_STATES_IN_OBS,
     params=None,
     device=None,
+    static_map=None,
+    static_cells=None,
+    return_info: bool = False,
 ):
     """Build a batched step with reset-where-done semantics.
 
@@ -68,23 +75,45 @@ def make_autoreset_step(
         pool: ``[N, A, 6]`` (or ``[N, A, 7]``) scenario pool.
         policy_id: ``[A]`` int policy ids applied to every episode.
         device: ``None`` means CUDA.
+        static_map / static_cells: map inputs of laserscan and occupancy
+            configs, as in ``env_step``; moved to the device once here.
+        return_info: also return ``env_step``'s info dict.  A config with a
+            fast laserscan route (``laserscan_entry_window`` or
+            ``laserscan_num_candidate_discs``) is exact only while the
+            info's ``laserscan_exactness_overflow`` guard is False, so such
+            a step must be built with ``return_info=True``.
 
     Returns:
         ``step(state, counter, external=None) -> (state', counter', obs,
-        rewards, game_over, info)`` over ``[E]`` envs; ``counter`` is an
+        rewards, game_over[, info])`` over ``[E]`` envs; ``counter`` is an
         ``[E]`` int32 tensor (give each env a different start, e.g.
         ``arange(E)``).  On reset steps the returned state and obs are the
         new episode's first ones; ``info`` describes the step that ended the
-        old episode.
+        old episode, whose exactness the guard certifies.
     """
     device = resolve_device(device)
+    fast_laser = (cfg.laserscan_entry_window is not None
+                  or cfg.laserscan_num_candidate_discs is not None)
+    if (fast_laser and static_cells is not None and not return_info
+            and any((s if isinstance(s, str) else s[0]) == "laserscan" for s in sensors)):
+        raise ValueError(
+            "cfg enables a conditionally-exact laserscan fast path "
+            "(laserscan_entry_window / laserscan_num_candidate_discs); build the "
+            "autoreset step with return_info=True and check "
+            "info['laserscan_exactness_overflow'] every step")
+    if static_map is not None:
+        static_map = as_device_tensor(static_map, torch.bool, device)
+    if static_cells is not None:
+        static_cells = as_device_tensor(static_cells, torch.int32, device)
     pool_states = state_from_case(cfg, pool, policy_id, device=device)
-    pool_states, pool_obs = env_reset(pool_states, cfg, sensors, states_in_obs)
+    pool_states, pool_obs = env_reset(pool_states, cfg, sensors, states_in_obs,
+                                      static_map, static_cells)
     N = pool_states.num_envs
 
     def step(state: EnvState, counter, external=None):
         state, obs, rewards, game_over, info = env_step(
             state, external, cfg, params, active_policies, sensors, states_in_obs,
+            static_map, static_cells,
         )
         pick = (counter % N).long()
 
@@ -96,6 +125,8 @@ def make_autoreset_step(
         state = pool_states.map(sel, state).replace(rng=rng)
         obs = {k: sel(pool_obs[k], v) for k, v in obs.items()}
         counter = counter + game_over.to(counter.dtype)
-        return state, counter, obs, rewards, game_over, info
+        if return_info:
+            return state, counter, obs, rewards, game_over, info
+        return state, counter, obs, rewards, game_over
 
     return step

@@ -24,8 +24,10 @@ def batched_env_step(
     active_policies: Tuple[int, ...] = (policies.NONCOOP,),
     sensors: Tuple[str, ...] = ("other_agents_states",),
     states_in_obs: Tuple[str, ...] = obs_spec.DEFAULT_STATES_IN_OBS,
+    static_map=None,
+    static_cells=None,
 ):
     """One lockstep step for an ``[E, A]``-leaved state batch; ``ext_actions``
     is ``[E, A, 2]`` or None.  Same outputs as ``env_step``."""
     return env_step(states, ext_actions, cfg, params, active_policies, sensors,
-                    states_in_obs)
+                    states_in_obs, static_map, static_cells)

@@ -10,6 +10,12 @@ The JAX step is written for one env and vmapped; this one takes
 3. rewards from the new positions, with collision latching (kernel K1),
 4. sensing and observation assembly,
 5. done flags and the per-env game-over reduction.
+
+``static_map`` (``[H, W]`` bool, :func:`maps.grid.load_static_map`) adds
+wall collisions when ``cfg.use_static_map`` and feeds the dense laserscan
+and the occupancy grid; ``static_cells`` (``[S, 2]``,
+:func:`maps.grid.occupied_cell_list`) switches the laserscan to
+``laserscan_sparse``.  Pass both as device tensors to skip a copy a step.
 """
 
 from __future__ import annotations
@@ -21,7 +27,9 @@ import torch
 from gym_collision_avoidance_torch import config as cfg_mod
 from gym_collision_avoidance_torch.config import EnvConfig
 from gym_collision_avoidance_torch.core import dynamics as dyn
-from gym_collision_avoidance_torch.core.state import MAPS_ITEM, EnvState
+from gym_collision_avoidance_torch.core.device import as_device_tensor
+from gym_collision_avoidance_torch.core.state import EnvState
+from gym_collision_avoidance_torch.maps import grid as map_grid
 from gym_collision_avoidance_torch.obs import sensors as sensors_mod
 from gym_collision_avoidance_torch.obs import spec as obs_spec
 from gym_collision_avoidance_torch.ops import pairwise
@@ -98,14 +106,22 @@ def _take_actions(state: EnvState, actions: torch.Tensor, cfg: EnvConfig) -> Env
     )
 
 
-def _compute_rewards(state: EnvState, cfg: EnvConfig):
+def _on_device(x, dtype, device):
+    return None if x is None else as_device_tensor(x, dtype, device)
+
+
+def _compute_rewards(state: EnvState, cfg: EnvConfig, static_map=None):
     """Reward shaping + collision latching
     (envs/collision_avoidance_env.py:394-456).  The pairwise geometry is
     kernel K1 (:mod:`gym_collision_avoidance_torch.ops.pairwise`)."""
     collision_with_agent, dist_nearest = pairwise.pairwise_collisions(
         state.pos.contiguous(), state.radius.contiguous(), state.valid.contiguous()
     )
-    # Wall collisions need static maps (ROADMAP.md §1 item 11): always False.
+    if cfg.use_static_map and static_map is not None:
+        collision_with_wall = map_grid.wall_collisions(
+            static_map, state.pos, state.radius, state.valid, cfg)
+    else:
+        collision_with_wall = torch.zeros_like(collision_with_agent)
 
     r = torch.full(state.radius.shape, cfg.reward_time_step,
                    dtype=state.pos.dtype, device=state.pos.device)
@@ -114,9 +130,11 @@ def _compute_rewards(state: EnvState, cfg: EnvConfig):
 
     eligible = ~state.is_at_goal & ~state.was_in_collision_already
     hit_agent = eligible & collision_with_agent
+    hit_wall = eligible & ~collision_with_agent & collision_with_wall
     r = torch.where(hit_agent, torch.full_like(r, cfg.reward_collision_with_agent), r)
+    r = torch.where(hit_wall, torch.full_like(r, cfg.reward_collision_with_wall), r)
 
-    no_hit = eligible & ~collision_with_agent
+    no_hit = eligible & ~collision_with_agent & ~collision_with_wall
     close = no_hit & (dist_nearest <= cfg.getting_close_range)
     # The -0.1 - d/2 shaping is hard-coded in the reference (":438-440").
     r = torch.where(close, cfg.reward_getting_close - dist_nearest / 2.0, r)
@@ -134,7 +152,7 @@ def _compute_rewards(state: EnvState, cfg: EnvConfig):
     r = torch.clamp(r, min(possible), max(possible))
     r = torch.where(state.valid, r, torch.zeros_like(r))
 
-    return state.replace(in_collision=state.in_collision | hit_agent), r
+    return state.replace(in_collision=state.in_collision | hit_agent | hit_wall), r
 
 
 def normalize_sensor_spec(sensors, num_agents: int):
@@ -152,22 +170,79 @@ def normalize_sensor_spec(sensors, num_agents: int):
     return spec
 
 
+def _equipped_mask(idx, num_agents: int, device):
+    """``[A]`` bool: which agents carry a subset-equipped sensor."""
+    m = torch.zeros(num_agents, dtype=torch.bool, device=device)
+    m[list(idx)] = True
+    return m
+
+
 def _sense_and_observe(state: EnvState, cfg: EnvConfig, sensors,
-                       states_in_obs: Sequence[str]):
+                       states_in_obs: Sequence[str], static_map=None, static_cells=None):
     """Sensor pass + obs assembly (collision_avoidance_env.py:555-575).
-    Only the other-agents sensor is ported."""
-    A = state.num_agents
+
+    Returns (state, obs, sense_info); ``sense_info`` holds the ``[E]``
+    ``laserscan_exactness_overflow`` guard of the fast laserscan routes.
+    Agents outside a ``(name, idx)`` subset keep their sensor state."""
+    E, A = state.pos.shape[:2]
+    device = state.pos.device
     spec = normalize_sensor_spec(sensors, A)
     for name in spec:
-        if name != "other_agents_states":
-            raise NotImplementedError(f"sensor {name!r}: {MAPS_ITEM}")
+        if name not in ("other_agents_states", "laserscan", "occupancy_grid"):
+            raise ValueError(f"unknown sensor {name!r}")
+    static_map = _on_device(static_map, torch.bool, device)
+    static_cells = _on_device(static_cells, torch.int32, device)
     sensed = {}
+    sense_info = {}
+    needs_map = ("laserscan" in spec and static_cells is None) or "occupancy_grid" in spec
+    if needs_map:
+        if static_map is None or not cfg.use_static_map:
+            raise ValueError(
+                "laserscan/occupancy_grid sensors need cfg.use_static_map=True and a "
+                "static_map array (or static_cells for the sparse laserscan)")
+        dynamic_map = map_grid.stamp_agents(static_map, state.pos, state.radius,
+                                            state.valid, cfg)
+    if "laserscan" in spec:
+        idx = spec["laserscan"]
+        if static_cells is not None:
+            ranges_e, laser_ovf = sensors_mod.laserscan_sparse(
+                state, cfg, static_cells, ego_idx=idx, return_overflow=True)
+            if (cfg.laserscan_entry_window is not None
+                    or cfg.laserscan_num_candidate_discs is not None):
+                # True where this step's ranges may differ from the full pass
+                sense_info["laserscan_exactness_overflow"] = laser_ovf
+        else:
+            ranges_e = sensors_mod.laserscan(state, cfg, dynamic_map, ego_idx=idx)
+        if idx is None:
+            ranges, equipped = ranges_e, None
+        else:
+            # unequipped rows read the maximum range; they are never used
+            ranges = torch.full((E, A, ranges_e.shape[-1]), sensors_mod.LASER_MAX_RANGE,
+                                dtype=ranges_e.dtype, device=device)
+            ranges[:, list(idx)] = ranges_e
+            equipped = _equipped_mask(idx, A, device)
+        hist = state.laserscan_history
+        rolled = torch.cat([ranges[:, :, None, :], hist[:, :, :-1, :]], dim=2)
+        # the first measurement fills the whole history (LaserScanSensor.py:84-88)
+        first = (state.laserscan_count == 0)[..., None, None]
+        hist_new = torch.where(first, ranges[:, :, None, :].expand_as(rolled), rolled)
+        count = state.laserscan_count + 1
+        if equipped is not None:
+            hist_new = torch.where(equipped[:, None, None], hist_new, hist)
+            count = torch.where(equipped, count, state.laserscan_count)
+        state = state.replace(laserscan_history=hist_new, laserscan_count=count)
+        sensed["laserscan"] = hist_new
+    if "occupancy_grid" in spec:
+        og = sensors_mod.occupancy_grid(state, cfg, dynamic_map)
+        idx = spec["occupancy_grid"]
+        if idx is not None:
+            og = og & _equipped_mask(idx, A, device)[:, None, None]
+        sensed["occupancy_grid"] = og
     if "other_agents_states" in spec:
         rows, closest, counts = sensors_mod.other_agents_states(state, cfg)
         idx = spec["other_agents_states"]
         if idx is not None:
-            eq = torch.zeros(A, dtype=torch.bool, device=state.pos.device)
-            eq[list(idx)] = True
+            eq = _equipped_mask(idx, A, device)
             rows = torch.where(eq[:, None, None], rows, state.sensed_others)
             closest = torch.where(eq[:, None], closest, state.other_agent_states)
             counts = torch.where(eq, counts, state.num_other_agents_observed)
@@ -178,7 +253,7 @@ def _sense_and_observe(state: EnvState, cfg: EnvConfig, sensors,
             num_other_agents_observed=counts,
         )
     obs = obs_spec.build_observation(state, cfg, sensed, states_in_obs)
-    return state, obs
+    return state, obs, sense_info
 
 
 def _check_dones(state: EnvState, cfg: EnvConfig):
@@ -199,11 +274,6 @@ def _check_dones(state: EnvState, cfg: EnvConfig):
     return state.replace(is_done=is_done), which_done, game_over
 
 
-def _check_supported(cfg: EnvConfig):
-    if cfg.use_static_map:
-        raise NotImplementedError(f"cfg.use_static_map: {MAPS_ITEM}")
-
-
 def env_step(
     state: EnvState,
     ext_actions: Optional[torch.Tensor],
@@ -212,6 +282,8 @@ def env_step(
     active_policies: Tuple[int, ...] = (policies.NONCOOP,),
     sensors: Tuple[str, ...] = ("other_agents_states",),
     states_in_obs: Tuple[str, ...] = obs_spec.DEFAULT_STATES_IN_OBS,
+    static_map=None,
+    static_cells=None,
 ):
     """Advance every env of the batch by one timestep.
 
@@ -220,11 +292,13 @@ def env_step(
         ext_actions: ``[E, A, 2]`` external actions, or None if no agent has
             an external policy.
         active_policies: policy ids present in the batch.
+        static_map / static_cells: see the module docstring.
 
     Returns:
-        (new_state, obs dict, rewards [E, A], game_over [E] bool, info dict)
+        (new_state, obs dict, rewards [E, A], game_over [E] bool, info dict);
+        with a fast laserscan route, ``info["laserscan_exactness_overflow"]``
+        is ``[E]`` bool.
     """
-    _check_supported(cfg)
     # StaticPolicy pins its goal to its position every step it is queried
     # (StaticPolicy.py:21); done agents are not queried.
     if policies.STATIC in active_policies:
@@ -237,9 +311,11 @@ def env_step(
         # (envs/collision_avoidance_env.py:304-306).
         actions = actions.to(torch.float32).to(state.pos.dtype)
 
+    static_map = _on_device(static_map, torch.bool, state.pos.device)
     state = _take_actions(state, actions, cfg)
-    state, rewards = _compute_rewards(state, cfg)
-    state, obs = _sense_and_observe(state, cfg, sensors, states_in_obs)
+    state, rewards = _compute_rewards(state, cfg, static_map)
+    state, obs, sense_info = _sense_and_observe(state, cfg, sensors, states_in_obs,
+                                                static_map, static_cells)
     state, which_done, game_over = _check_dones(state, cfg)
     state = state.replace(episode_step=state.episode_step + 1)
 
@@ -248,6 +324,7 @@ def env_step(
         "which_agents_learning": policies._isin(
             state.policy_id, policies.STILL_LEARNING_POLICIES
         ),
+        **sense_info,
     }
     return state, obs, rewards, game_over, info
 
@@ -257,8 +334,11 @@ def env_reset(
     cfg: EnvConfig,
     sensors: Tuple[str, ...] = ("other_agents_states",),
     states_in_obs: Tuple[str, ...] = obs_spec.DEFAULT_STATES_IN_OBS,
+    static_map=None,
+    static_cells=None,
 ):
     """The first observation of freshly-initialized states
     (``reset`` -> ``_get_obs``, collision_avoidance_env.py:236-282)."""
-    _check_supported(cfg)
-    return _sense_and_observe(state, cfg, sensors, states_in_obs)
+    state, obs, _sense_info = _sense_and_observe(state, cfg, sensors, states_in_obs,
+                                                 static_map, static_cells)
+    return state, obs

@@ -10,9 +10,10 @@ Example::
 
 ``dispatch`` runs ``steps_per_dispatch`` steps in a Python loop of eager
 PyTorch calls and returns per-step stacked outputs ``[S, ...]``: the
-requested ``collect`` obs keys, ``mean_reward`` and ``obs_checksum``.  It
-does not synchronise; reading a value does.  Sharding over a device mesh
-(ROADMAP.md §1 item 16) and the laserscan guard (item 12) are not ported.
+requested ``collect`` obs keys, ``mean_reward`` and ``obs_checksum``, and
+with a fast laserscan route ``exactness_overflow``.  It does not
+synchronise; reading a value does.  Sharding over a device mesh
+(ROADMAP.md §1 item 16) is not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +43,11 @@ class AutoresetServer:
         collect: obs keys returned stacked per dispatch.
         active_policies / params / sensors / states_in_obs: as in
             :func:`env.autoreset.make_autoreset_step`.
+        static_map / static_cells: map inputs of laserscan and occupancy
+            configs (as in ``env.step.env_step``).  With a fast laserscan
+            route the step's exactness guard is gathered every step, per
+            dispatch (``out["exactness_overflow"]``, ``[S]`` bool) and since
+            construction (:meth:`exactness_overflow`).
         device: ``None`` means CUDA (raises if it is absent).
     """
 
@@ -57,6 +63,8 @@ class AutoresetServer:
         params=None,
         sensors: Sequence[str] = ("other_agents_states",),
         states_in_obs: Sequence[str] = obs_spec.DEFAULT_STATES_IN_OBS,
+        static_map=None,
+        static_cells=None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -67,6 +75,7 @@ class AutoresetServer:
         self._step = autoreset.make_autoreset_step(
             cfg, pool, policy_id, active_policies, tuple(sensors),
             tuple(states_in_obs), params, device=self.device,
+            static_map=static_map, static_cells=static_cells, return_info=True,
         )
         self.num_envs = int(num_envs)
         self.steps_per_dispatch = int(steps_per_dispatch)
@@ -78,23 +87,29 @@ class AutoresetServer:
         )
         self._counters = torch.arange(self.num_envs, dtype=torch.int32,
                                       device=self.device)
+        self._overflow = torch.zeros((), dtype=torch.bool, device=self.device)
 
     def dispatch(self):
         """Run S steps; returns stacked ``[S, ...]`` outputs without
         synchronising."""
         outs = {k: [] for k in self.collect}
-        rewards, checksums = [], []
+        rewards, checksums, overflows = [], [], []
         st, c = self._states, self._counters
         for _ in range(self.steps_per_dispatch):
-            st, c, obs, rew, _go, _info = self._step(st, c)
+            st, c, obs, rew, _go, info = self._step(st, c)
             for k in self.collect:
                 outs[k].append(obs[k])
             rewards.append(rew.sum(dim=-1))                  # [E]
             checksums.append(obs["dist_to_goal"].sum(dim=-1))  # [E, A]
+            if "laserscan_exactness_overflow" in info:
+                overflows.append(info["laserscan_exactness_overflow"].any())
         self._states, self._counters = st, c
         out = {k: torch.stack(v) for k, v in outs.items()}
         out["mean_reward"] = torch.stack(rewards).mean(dim=1) / self._n_agents
         out["obs_checksum"] = torch.stack(checksums).sum(dim=1)
+        if overflows:
+            out["exactness_overflow"] = torch.stack(overflows)
+            self._overflow = self._overflow | out["exactness_overflow"].any()
         return out
 
     def _sync(self):
@@ -111,6 +126,12 @@ class AutoresetServer:
         int64 on the host."""
         counters = self._counters.cpu().numpy().astype(np.int64)
         return int(np.sum(counters - np.arange(self.num_envs, dtype=np.int64)))
+
+    def exactness_overflow(self) -> bool:
+        """True if any step since construction tripped the laserscan
+        exactness guard (always False without a fast laserscan route;
+        syncs)."""
+        return bool(self._overflow)
 
     def throughput(self, reps: int = 3, pipeline: int = 8):
         """Measured steady-state env-steps/s: median of ``reps``, each

@@ -44,6 +44,7 @@ _OBS_FNS: Dict[str, Callable] = {
     "radius": lambda s, c, sensed: s.radius[..., None],
     "other_agent_states": lambda s, c, sensed: s.other_agent_states,
     "other_agents_states": lambda s, c, sensed: sensed["other_agents_states"],
+    "laserscan": lambda s, c, sensed: sensed["laserscan"],
 }
 
 # Normalization statistics (envs/config.py:93-170 'mean'/'std' entries).
@@ -69,8 +70,6 @@ def build_observation(state, cfg, sensed, states_in_obs: Sequence[str] = DEFAULT
     """The dict observation of every agent: key -> ``[E, A, ...]``."""
     obs = {}
     for key in states_in_obs:
-        if key == "laserscan":
-            raise NotImplementedError("laserscan obs: ROADMAP.md §1 item 12")
         obs[key] = _OBS_FNS[key](state, cfg, sensed)
     return obs
 

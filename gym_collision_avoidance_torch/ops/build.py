@@ -83,3 +83,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def check_launch_args(fields, device) -> None:
+    """Raise unless every ``(name, tensor, dtype, shape)`` of ``fields`` is a
+    contiguous tensor of that dtype and shape on ``device``, and ``device``
+    is the current CUDA device (a launcher runs there)."""
+    import torch
+
+    for name, t, dtype, shape in fields:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors are on {device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")

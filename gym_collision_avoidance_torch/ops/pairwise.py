@@ -68,19 +68,9 @@ def pairwise_collisions_cuda(pos, radius, valid):
     E, A = pos.shape[:2]
     if pos.dtype not in _SYMBOLS:
         raise TypeError(f"pos must be float32 or float64, got {pos.dtype}")
-    if radius.dtype != pos.dtype or valid.dtype != torch.bool:
-        raise TypeError("radius must have pos's dtype and valid must be bool")
-    if tuple(radius.shape) != (E, A) or tuple(valid.shape) != (E, A):
-        raise ValueError("radius and valid must be [E, A]")
-    for name, t in (("pos", pos), ("radius", radius), ("valid", valid)):
-        if t.device != pos.device:
-            raise ValueError(f"{name} is on {t.device}, pos on {pos.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if pos.device.index != torch.cuda.current_device():
-        # the launcher runs on the current device
-        raise ValueError(f"pos is on {pos.device}, the current device is "
-                         f"cuda:{torch.cuda.current_device()}")
+    build.check_launch_args([("pos", pos, pos.dtype, (E, A, 2)),
+                             ("radius", radius, pos.dtype, (E, A)),
+                             ("valid", valid, torch.bool, (E, A))], pos.device)
     collision = torch.empty((E, A), dtype=torch.bool, device=pos.device)
     nearest = torch.empty((E, A), dtype=pos.dtype, device=pos.device)
     err = _kernel_func(pos.dtype)(

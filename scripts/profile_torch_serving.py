@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's serving loop goes, on one CUDA card.
 
-Builds the main path's ``AutoresetServer`` (4 NonCoop agents, 64-case pool,
-float32, evaluate mode; ``--num-envs`` envs), warms it up, then traces one
-dispatch of ``--steps`` steps with ``torch.profiler`` and prints one JSON
-line: wall time per step, device busy time per step (the sum of kernel
-times, no overlap on one stream), the device's idle share, kernel launches
-per step, K1's share, and the ten kernels that take the most device time.
-The card's ``nvidia-smi`` name and power limit go beside the numbers.
+Builds an ``AutoresetServer`` for one of the port's paths, warms it up,
+then traces one dispatch of ``--steps`` steps with ``torch.profiler`` and
+prints one JSON line: wall time per step, device busy time per step (the sum
+of kernel times, no overlap on one stream), the device's idle share, kernel
+launches per step, the hand-written kernels' shares, and the ten kernels
+that take the most device time.  The card's ``nvidia-smi`` name and power
+limit go beside the numbers.
 
-    python3 scripts/profile_torch_serving.py [--num-envs 16384] [--steps 32]
-        [--trace results/serving_trace.json]
+``--config main`` is the main path (4 NonCoop agents, 64-case pool, float32,
+evaluate mode, default 16384 envs).  ``laser_full`` and ``laser_fast`` are
+the ``ga3c20_laser`` configuration of ``scripts/bench_all.py`` (20 agents on
+the 8 m circle, 512 beams, the empty 20 x 20 m map, default 256 envs) with
+NonCoop agents, without and with its fast laserscan route (kernel K2 or K3).
+
+    python3 scripts/profile_torch_serving.py [--config main] [--num-envs N]
+        [--steps 32] [--trace results/serving_trace.json]
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--num-envs", type=int, default=16384)
+    ap.add_argument("--config", choices=("main", "laser_full", "laser_fast"), default="main")
+    ap.add_argument("--num-envs", type=int, default=None,
+                    help="default 16384 for main, 256 for the laser configs")
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args()
@@ -42,13 +50,31 @@ def main():
 
     from gym_collision_avoidance_torch import EnvConfig
     from gym_collision_avoidance_torch.harness.serving import AutoresetServer
+    from gym_collision_avoidance_torch.maps import grid
     from gym_collision_avoidance_torch.policies import registry
-    from gym_collision_avoidance_torch.scenarios import random_cases
+    from gym_collision_avoidance_torch.scenarios import presets, random_cases
 
-    cfg = EnvConfig(dtype="float32", done_mode="evaluate")
-    pool = random_cases.scenario_pool(64, 4, seed=0, side_length=4.0)
-    server = AutoresetServer(cfg, pool, np.full(4, registry.NONCOOP, np.int32),
-                             num_envs=args.num_envs, steps_per_dispatch=args.steps)
+    if args.config == "main":
+        args.num_envs = args.num_envs or 16384
+        cfg = EnvConfig(dtype="float32", done_mode="evaluate")
+        pool = random_cases.scenario_pool(64, 4, seed=0, side_length=4.0)
+        server = AutoresetServer(cfg, pool, np.full(4, registry.NONCOOP, np.int32),
+                                 num_envs=args.num_envs, steps_per_dispatch=args.steps)
+    else:
+        args.num_envs = args.num_envs or 256
+        fast = dict(laserscan_num_candidate_discs=9, laserscan_entry_window=12,
+                    laserscan_beam_slots=4) if args.config == "laser_fast" else {}
+        cfg = EnvConfig(dtype="float32", max_num_other_agents_observed=19,
+                        agent_sorting_method="closest_last", use_static_map=True,
+                        map_x_width=20.0, map_y_width=20.0, **fast)
+        sc = presets.circle_scenario(20, radius=8.0, agent_radius=0.3)
+        pool = np.concatenate([sc.pos, sc.goal, sc.pref_speed[:, None],
+                               sc.radius[:, None]], -1)[None]
+        static = grid.load_static_map(cfg, None)
+        server = AutoresetServer(cfg, pool, np.full(20, registry.NONCOOP, np.int32),
+                                 num_envs=args.num_envs, steps_per_dispatch=args.steps,
+                                 sensors=("other_agents_states", "laserscan"),
+                                 static_map=static, static_cells=grid.occupied_cell_list(static))
     server.dispatch()
     torch.cuda.synchronize()
 
@@ -68,18 +94,21 @@ def main():
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    k1_us = sum(t for name, (_, t) in by_name.items() if "pairwise_kernel" in name)
+    def share(kernel):
+        return sum(t for name, (_, t) in by_name.items() if kernel in name) / 1e3 / args.steps
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     steps = args.steps
     print(json.dumps({"profile_serving": {
-        "device": smi, "num_envs": args.num_envs, "steps": steps,
+        "device": smi, "config": args.config, "num_envs": args.num_envs, "steps": steps,
         "wall_ms_per_step": 1e3 * wall / steps,
         "device_busy_ms_per_step": (busy_us / 1e3 / steps) if kernels else "not measured",
         "device_idle_share": (1 - busy_us / 1e6 / wall) if kernels else "not measured",
         "kernels_per_step": len(kernels) / steps,
-        "k1_device_ms_per_step": k1_us / 1e3 / steps,
+        "k1_device_ms_per_step": share("pairwise_kernel"),
+        "k2_device_ms_per_step": share("raymarch_kernel"),
+        "k3_device_ms_per_step": share("laser_fused_kernel"),
         "top_kernels": [{"name": name[:80], "calls": n, "device_ms": t / 1e3}
                         for name, (n, t) in top],
     }}))

@@ -15,6 +15,9 @@ import importlib, pkgutil, sys
 import gym_collision_avoidance_torch as pkg
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
+for name in ("maps.grid", "ops.pairwise", "ops.raymarch", "ops.laser_fused", "ops.build",
+             "obs.sensors", "env.step", "harness.serving", "convert"):
+    assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gym_collision_avoidance_tpu"))
 assert not bad, bad

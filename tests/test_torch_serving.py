@@ -53,7 +53,8 @@ def test_autoreset_loop_matches_jax(kind):
         jnp.asarray(pool[np.arange(E) % N]))
     jc = jnp.arange(E, dtype=jnp.int32)
 
-    tstep = tauto.make_autoreset_step(tcfg, pool, policy_id, device=tp.DEVICE)
+    tstep = tauto.make_autoreset_step(tcfg, pool, policy_id, device=tp.DEVICE,
+                                      return_info=True)
     tst = tauto.state_from_case(tcfg, pool[np.arange(E) % N], policy_id, device=tp.DEVICE)
     tc = torch.arange(E, dtype=torch.int32)
     tp.assert_states_close(tst, jst, **TOL)

@@ -190,12 +190,14 @@ def test_unported_pieces_raise():
     st = tstate.init_state(cfg, np.zeros((1, 2, 2)), np.ones((1, 2, 2)),
                            np.full((1, 2), 0.3), np.ones((1, 2)), device="cpu")
     with pytest.raises(NotImplementedError, match="item 2"):
+        tstate.apply_external_states(st, cfg, np.zeros((1, 2, 2)))
+    with pytest.raises(NotImplementedError, match="item 2"):
         tstate.init_state(cfg.replace(strict_parity=True), np.zeros((1, 2, 2)),
                           np.ones((1, 2, 2)), np.full((1, 2), 0.3), np.ones((1, 2)),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="items 11-12"):
-        t_env_step(st, None, cfg.replace(use_static_map=True))
-    with pytest.raises(NotImplementedError, match="items 11-12"):
+    # static maps and the laserscan are ported; a laserscan without a map
+    # or a cell list is a usage error, as in the JAX package
+    with pytest.raises(ValueError, match="static_map"):
         t_env_step(st, None, cfg, sensors=("laserscan",))
     for pid, item in ((8, "item 8"), (6, "item 9"), (7, "item 10"), (9, "item 13")):
         with pytest.raises(NotImplementedError, match=item):
