@@ -8,9 +8,12 @@ toolkit (``nvcc`` under ``/usr/local/cuda`` or on ``PATH``)::
 
 It builds every hand-written kernel of the port from ``csrc/`` (one ``nvcc``
 for each source, all started together) and holds each against its plain
-PyTorch version on the card.  Then it drives the port's paths through
-``AutoresetServer``, each with the kernel launch counts set to 0 just before
-and read just after:
+PyTorch version on the card.  K2 is held on the seeded edge cases of
+``tests/test_torch_raymarch_band.py`` too (tangent beams, cell boundaries,
+map edges, A = 40, in both dtypes), and that file's model of K2's band
+design counts the work behind K2's bound.  Then it drives the port's paths
+through ``AutoresetServer``, each with the kernel launch counts set to 0 just
+before and read just after:
 
 * the main path: the 4-agent NonCoop auto-reset serving loop that
   ``bench.py`` times, at E = 16384 envs (kernel K1);
@@ -32,7 +35,9 @@ JAX.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -343,41 +348,59 @@ def laser_states(cfg, E, seed, device, A=A_LASER, odd=False):
                       heading=rng.uniform(-np.pi, np.pi, (E, A)), valid=valid, device=device)
 
 
-def k2_bound(args, out, cfg):
-    """Least device time of one K2 launch: bytes read and written once, and
-    the operations this run's data needs (a beam marches up to its second
-    hit), whichever is larger."""
+def band_model():
+    """``tests/test_torch_raymarch_band.py``: the plain PyTorch model of K2's
+    band design, its seeded edge cases and its work count (it imports no
+    JAX)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_raymarch_band.py")
+    spec = importlib.util.spec_from_file_location("raymarch_band", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def k2_bound(args, out, band):
+    """Least device time of one K2 launch, from this run's data: the bytes
+    read and written once, and the operations the band design needs (each
+    warp of 32 beams screens every usable source against its wedge, about
+    15 operations; each beam screens the sources its warp keeps, about 20,
+    and tests the band samples of the crossing ones up to its second hit,
+    about 25 each); whichever is larger.  Also the old brute-force count:
+    every sample up to the second hit against every disc and static cell."""
     from gym_collision_avoidance_torch.ops import raymarch
 
     moved = sum(t.numel() * t.element_size() for t in args if torch.is_tensor(t))
     moved += out.numel() * out.element_size()
+    warp_screens, lane_screens, samples = band.band_work(args, out)
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = (15 * warp_screens + 20 * lane_screens + 25 * samples) / F32_FLOPS
     R = raymarch.LASER_NUM_RANGE_SAMPLES
     ans = torch.round(out.double() / raymarch.LASER_RANGE_RESOLUTION).long()
     second = (out < raymarch.LASER_MAX_RANGE) & (ans < R - 1)
-    samples = float(torch.where(second, ans + 2, R).sum())
+    marched = float(torch.where(second, ans + 2, R).sum())
     A, S = args[6].shape[-1], args[9].shape[0]
     # per sample: position, cell and map test ~20, host disc 7, each disc 7,
     # each static cell 2
-    ops = samples * (27 + 7 * A + 2 * S)
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    t_brute = marched * (27 + 7 * A + 2 * S) / F32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_bytes": t_bytes * 1e3, "bound_ms_bruteforce": max(t_bytes, t_brute) * 1e3,
+            "warp_screens_per_beam": warp_screens / out.numel(),
+            "lane_screens_per_beam": lane_screens / out.numel(),
+            "band_samples_per_beam": samples / out.numel()}
 
 
 def phase_k2():
-    """K2 against its plain version, bitwise, on the card; timed at the
-    laser path's full width."""
+    """K2 against its plain version, bitwise, on the card: the laser path's
+    cases and the band model's edge cases, in float32 and float64; timed at
+    the laser path's full width on the empty map and on map 002."""
     from gym_collision_avoidance_torch.obs import sensors
     from gym_collision_avoidance_torch.ops import raymarch
 
-    cfg = laser_config(False)
-    cases = [("f32 full width, empty map", cfg, E_LASER, None, False),
-             ("f32, map 002 (84 cells + 16 padding rows)", cfg, 32, "002", False),
-             ("f64", laser_config(False, "float64"), 8, None, False),
-             ("f32, E*A = 35, invalid and off-map agents", cfg, 7, "002", True)]
-    worst, timed = 0.0, None
-    for i, (name, c, E, map_name, odd) in enumerate(cases):
-        _static, cells = static_inputs(c, map_name, pad=16 if map_name else 0)
-        state = laser_states(c, E, 10 + i, DEVICE, A=5 if odd else A_LASER, odd=odd)
+    band = band_model()
+
+    def held(name, c, state, cells):
         calls = []
         with capture(raymarch, "raymarch_cuda", calls):
             out = sensors.laserscan_sparse(state, c, cells)
@@ -387,24 +410,51 @@ def phase_k2():
         check(bitwise_equal(out, ref), f"K2 {name}: not bitwise equal to the plain version")
         hits = int((ref < raymarch.LASER_MAX_RANGE).sum())
         check(hits > 0, f"K2 {name}: no beam hit anything")
-        worst = max(worst, max_abs_err(out, ref))
-        print(f"K2 {name} (E={E}): bitwise equal, {hits} of {ref.numel()} beams hit",
-              flush=True)
-        if timed is None:
-            timed = (calls[0], out)
-    args, out = timed
-    ms = graph_ms(lambda: raymarch.raymarch_cuda(*args), inner=5)
+        print(f"K2 {name} (E={state.pos.shape[0]}, A={state.pos.shape[1]}): bitwise equal, "
+              f"{hits} of {ref.numel()} beams hit", flush=True)
+        return calls[0], out, max_abs_err(out, ref)
+
+    cfg = laser_config(False)
+    cases = [("f32 full width, empty map", cfg, E_LASER, None, False),
+             ("f32, map 002 (84 cells + 16 padding rows)", cfg, 32, "002", False),
+             ("f64", laser_config(False, "float64"), 8, None, False),
+             ("f32, E*A = 35, invalid and off-map agents", cfg, 7, "002", True),
+             ("f64, map 002", laser_config(False, "float64"), 8, "002", False)]
+    worst, timed = 0.0, {}
+    for i, (name, c, E, map_name, odd) in enumerate(cases):
+        _static, cells = static_inputs(c, map_name, pad=16 if map_name else 0)
+        state = laser_states(c, E, 10 + i, DEVICE, A=5 if odd else A_LASER, odd=odd)
+        args, out, err = held(name, c, state, cells)
+        worst = max(worst, err)
+        timed.setdefault("empty", (args, out))
+    for name in band.CASES:
+        for dtype in ("float32", "float64"):
+            c, state, cells = band.build_case(name, dtype, DEVICE)
+            worst = max(worst, held(f"{dtype[5:]}-bit band case {name}", c, state, cells)[2])
+    # full width on map 002, for the per-source screen's share
+    _static, cells = static_inputs(cfg, "002", pad=16)
+    args, out, _err = held("f32 full width, map 002", cfg,
+                           laser_states(cfg, E_LASER, 15, DEVICE), cells)
+    timed["map_002"] = (args, out)
+
+    res = {}
+    for key, (args, out) in timed.items():
+        res[key] = {"ms": graph_ms(lambda: raymarch.raymarch_cuda(*args), inner=5),
+                    **k2_bound(args, out, band)}
+    args = timed["empty"][0]
     plain_ms = graph_ms(lambda: raymarch.raymarch_plain(*args), inner=2)
-    bound_ms, bound_by = k2_bound(args, out, cfg)
-    print(json.dumps({"kernel": "raymarch", "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                      "launches_per_step": 1, "shape": [E_LASER, A_LASER, L_LASER]}),
+    empty = res["empty"]
+    print(json.dumps({"kernel": "raymarch", "plain_ms": plain_ms, "library_ms": None,
+                      "launches_per_step": 1, "shape": [E_LASER, A_LASER, L_LASER], **res}),
           flush=True)
     return {"name": "raymarch", "route": "cuda",
             "source": "gym_collision_avoidance_torch/csrc/raymarch.cu",
             "replaces": "gym_collision_avoidance_tpu/ops/raymarch.py:173",
-            "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "launches": None, "max_abs_err": worst, "ms": empty["ms"], "plain_ms": plain_ms,
+            "bound_ms": empty["bound_ms"], "bound_by": empty["bound_by"], "library_ms": None,
+            "bound_ms_bruteforce": empty["bound_ms_bruteforce"],
+            "bound_ms_bytes": empty["bound_ms_bytes"],
+            "ms_map_002": res["map_002"]["ms"], "bound_ms_map_002": res["map_002"]["bound_ms"]}
 
 
 def k3_bound(args):

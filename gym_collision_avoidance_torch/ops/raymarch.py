@@ -18,7 +18,12 @@ Three pieces:
 * :func:`march_plain` -- the plain PyTorch version, over any per-host
   source set (the wedge-culled route of ``laserscan_sparse`` uses it too);
 * the hand-written CUDA kernel ``csrc/raymarch.cu``, bitwise equal to the
-  plain version on the card (see the note at its top);
+  plain version on the card (see the note at its top).  It does not test
+  every sample against every source: each warp drops the sources that miss
+  the wedge of its 32 beams, each remaining source (disc or static cell)
+  gets a conservative band of samples from the beam's distance to its cell
+  centre, and the exact test runs only inside the bands, up to the second
+  hit (``tests/test_torch_raymarch_band.py`` models it on the CPU);
 * :func:`raymarch` -- the wrapper ``laserscan_sparse`` calls on its full
   pass.  A CPU tensor goes to the plain version; a CUDA tensor goes to
   the kernel, or the wrapper raises.  ``LAUNCHES`` counts kernel launches.
@@ -118,7 +123,7 @@ def _kernel_func(dtype):
     if fn is None:
         fn = getattr(build.load("raymarch"), _SYMBOLS[dtype])
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 6
-                       + [ctypes.c_double] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_double] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FUNCS[dtype] = fn
     return fn
@@ -152,6 +157,7 @@ def raymarch_cuda(pos_e, cos_a, sin_a, gi_e, gj_e, rsq_e, gi, gj, rsq, static_ce
         gj_e.data_ptr(), rsq_e.data_ptr(), gi.data_ptr(), gj.data_ptr(), rsq.data_ptr(),
         static_cells.data_ptr(), rsamples.data_ptr(), out.data_ptr(),
         E, Ae, A, L, static_cells.shape[0], H, W, oi, oj, inv_cell,
+        cfg.map_grid_cell_size / LASER_RANGE_RESOLUTION,    # range samples per cell
         torch.cuda.current_stream(pos_e.device).cuda_stream,
     )
     if err != 0:

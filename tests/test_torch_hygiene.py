@@ -32,6 +32,19 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+def test_chip_smoke_imports_no_jax():
+    """``chip_smoke.py`` runs on a machine without JAX, and loads K2's band
+    model from ``tests/test_torch_raymarch_band.py``."""
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys, chip_smoke; chip_smoke.band_model()\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'gym_collision_avoidance_tpu'))\n"
+            "assert not bad, bad\nprint('ok')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo_root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
