@@ -8,10 +8,14 @@ toolkit (``nvcc`` under ``/usr/local/cuda`` or on ``PATH``)::
 
 It builds every hand-written kernel of the port from ``csrc/`` (one ``nvcc``
 for each source, all started together) and holds each against its plain
-PyTorch version on the card.  K2 is held on the seeded edge cases of
-``tests/test_torch_raymarch_band.py`` too (tangent beams, cell boundaries,
-map edges, A = 40, in both dtypes), and that file's model of K2's band
-design counts the work behind K2's bound.  Then it drives the port's paths
+PyTorch version on the card.  K2 and K3 are held on the seeded edge cases
+of ``tests/test_torch_raymarch_band.py`` and
+``tests/test_torch_laser_fused_band.py`` too (tangent beams, cell
+boundaries, map edges, hosts inside discs, map 002, in both dtypes), and
+those files' models of the kernels' designs count the work behind their
+bounds.  Every kernel row also carries the launch floor: the device time of
+one ``fill_`` of K1's output bytes, the least a launch costs in a CUDA
+graph.  Then it drives the port's paths
 through ``AutoresetServer``, each with the kernel launch counts set to 0 just
 before and read just after:
 
@@ -167,6 +171,9 @@ def phase_kernels(pairwise):
     kernel = lambda: pairwise.pairwise_collisions_cuda(pos, radius, valid)  # noqa: E731
     plain = lambda: pairwise.pairwise_collisions_plain(pos, radius, valid)  # noqa: E731
     ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+    # the least one launch costs: a fill of K1's output bytes, in a graph
+    floor_buf = torch.empty(E_MAIN * A_MAIN * 5, dtype=torch.uint8, device=DEVICE)
+    launch_floor_ms = graph_ms(lambda: floor_buf.fill_(0))
     # the same calls issued eagerly, host overhead included
     eager_ms, plain_eager_ms = median_ms(kernel), median_ms(plain)
     coll, near = pairwise.pairwise_collisions_plain(pos, radius, valid)
@@ -178,13 +185,15 @@ def phase_kernels(pairwise):
     bound_by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations"
     summary = {"kernel": "pairwise_collisions", "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "library_ms": None, "launches_per_step": 1,
-               "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms}
+               "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
+               "launch_floor_ms": launch_floor_ms}
     print(json.dumps(summary), flush=True)
     return {"name": "pairwise_collisions", "route": "cuda",
             "source": "gym_collision_avoidance_torch/csrc/pairwise.cu",
             "replaces": "gym_collision_avoidance_tpu/ops/pairwise.py:77",
             "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "launch_floor_ms": launch_floor_ms}
 
 
 def main_path_config():
@@ -348,13 +357,13 @@ def laser_states(cfg, E, seed, device, A=A_LASER, odd=False):
                       heading=rng.uniform(-np.pi, np.pi, (E, A)), valid=valid, device=device)
 
 
-def band_model():
-    """``tests/test_torch_raymarch_band.py``: the plain PyTorch model of K2's
-    band design, its seeded edge cases and its work count (it imports no
-    JAX)."""
+def band_model(kernel):
+    """``tests/test_torch_{kernel}_band.py``: the plain PyTorch model of K2's
+    (``raymarch``) or K3's (``laser_fused``) band design, its seeded edge
+    cases and its work count (it imports no JAX)."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "test_torch_raymarch_band.py")
-    spec = importlib.util.spec_from_file_location("raymarch_band", path)
+                        f"test_torch_{kernel}_band.py")
+    spec = importlib.util.spec_from_file_location(f"{kernel}_band", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -398,7 +407,7 @@ def phase_k2():
     from gym_collision_avoidance_torch.obs import sensors
     from gym_collision_avoidance_torch.ops import raymarch
 
-    band = band_model()
+    band = band_model("raymarch")
 
     def held(name, c, state, cells):
         calls = []
@@ -457,50 +466,44 @@ def phase_k2():
             "ms_map_002": res["map_002"]["ms"], "bound_ms_map_002": res["map_002"]["bound_ms"]}
 
 
-def k3_bound(args):
-    """Least device time of one K3 launch, from this run's data: bytes read
-    and written once; per beam, the screen of every usable source and the
-    window samples of its kept ones."""
-    from gym_collision_avoidance_torch.ops import laser_fused
-
-    (pos_e, _gie, _gje, _rsqe, cos_a, sin_a, _gid, _gjd, _irsq, relx, rely, rel2, ro2,
-     span_ok, cfg, Wn, Cs) = args
-    _H, _W, _oi, _oj, _ic, _res, _ir, t_max = laser_fused.consts(cfg, pos_e.dtype)
+def k3_bound(args, out, band):
+    """Least device time of one K3 launch, from this run's data: the bytes
+    read and written once, and the operations the band design needs (each
+    warp of 32 beams screens the usable sources against its wedge, about 15
+    operations; each beam screens those its warp keeps up to its Cs + 1-th
+    crossing, about 20, and tests the band samples of its kept ones up to its
+    second hit, about 25 each); whichever is larger.  Also the count of the
+    definition's design: every usable source screened on every beam and
+    ``Wn`` samples tested for every kept one."""
+    cos_a, relx, span_ok, Wn, Cs = args[4], args[9], args[13], args[15], args[16]
     moved = sum(t.numel() * t.element_size() for t in args if torch.is_tensor(t))
     moved += cos_a.numel() * (cos_a.element_size() + 1)            # ranges + flags
-    E, Ae, L = cos_a.shape
-    B, S = relx.shape[2:]
-    c = cos_a.reshape(E, Ae, B, 1, -1)
-    s = sin_a.reshape(E, Ae, B, 1, -1)
-    t_c = relx[..., None] * c + rely[..., None] * s
-    disc = ro2[..., None] - (rel2[..., None] - t_c * t_c)
-    half = torch.sqrt(torch.clamp(disc, min=0.0))
-    rel = (disc > 0) & (t_c + half >= 0) & (t_c - half <= t_max) & span_ok[..., None]
-    kept = float(torch.clamp(rel.sum(dim=3), max=Cs).sum())
-    screened = float(span_ok.sum()) * L / B
-    # a screened source ~15 operations, a window sample ~25
-    ops = 15 * screened + 25 * Wn * kept
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    warp_screens, lane_screens, samples = band.band_work(args, out)
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = (15 * warp_screens + 20 * lane_screens + 25 * samples) / F32_FLOPS
+    cross = band.screen(args)[0]
+    kept = float(torch.clamp(cross.sum(dim=3), max=Cs).sum())
+    screened = float(span_ok.sum()) * cos_a.shape[-1] / relx.shape[2]
+    t_window = (15 * screened + 25 * Wn * kept) / F32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_bytes": t_bytes * 1e3, "bound_ms_window": max(t_bytes, t_window) * 1e3,
+            "warp_screens_per_beam": warp_screens / out.numel(),
+            "lane_screens_per_beam": lane_screens / out.numel(),
+            "band_samples_per_beam": samples / out.numel()}
 
 
 def phase_k3():
     """K3 against its plain version, bitwise (ranges and overflow flags), on
-    the card; timed at the fast route's full width."""
+    the card: the fast route's cases and the band model's edge cases, in
+    float32 and float64; timed at the fast route's full width on the empty
+    map, on map 002 and on the route without wedge culling (B = 1)."""
     from gym_collision_avoidance_torch.obs import sensors
     from gym_collision_avoidance_torch.ops import laser_fused
 
-    cfg = laser_config(True)
-    cases = [("f32 full width, empty map", cfg, E_LASER, None, False),
-             ("f32, Cs = 1 (slots overflow)", laser_config(True, laserscan_beam_slots=1),
-              32, None, False),
-             ("f32, map 002 cells", cfg, 32, "002", False),
-             ("f64", laser_config(True, "float64"), 8, None, False),
-             ("f32, invalid and off-map agents", cfg, 7, "002", True)]
-    worst, timed, overflowed = 0.0, None, {}
-    for i, (name, c, E, map_name, odd) in enumerate(cases):
-        _static, cells = static_inputs(c, map_name, pad=16 if map_name else 0)
-        state = laser_states(c, E, 20 + i, DEVICE, odd=odd)
+    band = band_model("laser_fused")
+
+    def held(name, c, state, cells):
         calls = []
         with capture(laser_fused, "beam_compacted_cuda", calls):
             sensors.laserscan_sparse(state, c, cells, return_overflow=True)
@@ -511,25 +514,64 @@ def phase_k3():
         torch.cuda.synchronize()
         check(bitwise_equal(out, ref), f"K3 {name}: ranges not bitwise equal")
         check(torch.equal(ovf, ref_ovf), f"K3 {name}: overflow flags differ")
-        worst = max(worst, max_abs_err(out, ref))
-        overflowed[name] = int(ref_ovf.sum())
-        print(f"K3 {name} (E={E}): bitwise equal, {int((ref < 6.0).sum())} of {ref.numel()} "
-              f"beams hit, {overflowed[name]} beams overflow their slots", flush=True)
-        if timed is None:
-            timed = calls[0]
-    check(overflowed["f32, Cs = 1 (slots overflow)"] > 0, "the Cs = 1 case should overflow")
-    ms = graph_ms(lambda: laser_fused.beam_compacted_cuda(*timed))
-    plain_ms = graph_ms(lambda: laser_fused.beam_compacted_plain(*timed), inner=5)
-    bound_ms, bound_by = k3_bound(timed)
-    print(json.dumps({"kernel": "laser_fused", "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                      "launches_per_step": 1, "shape": [E_LASER, A_LASER, L_LASER]}),
+        hits = int((ref < laser_fused.LASER_MAX_RANGE).sum())
+        check(hits > 0, f"K3 {name}: no beam hit anything")
+        print(f"K3 {name} (E={state.pos.shape[0]}, B={calls[0][6].shape[2]}, "
+              f"S={calls[0][6].shape[3]}): bitwise equal, {hits} of {ref.numel()} beams hit, "
+              f"{int(ref_ovf.sum())} beams overflow their slots", flush=True)
+        return calls[0], out, max_abs_err(out, ref), int(ref_ovf.sum())
+
+    cfg = laser_config(True)
+    cases = [("f32 full width, empty map", cfg, E_LASER, None, False),
+             ("f32, Cs = 1 (slots overflow)", laser_config(True, laserscan_beam_slots=1),
+              32, None, False),
+             ("f32, map 002 cells", cfg, 32, "002", False),
+             ("f64", laser_config(True, "float64"), 8, None, False),
+             ("f32, invalid and off-map agents", cfg, 7, "002", True)]
+    worst, timed = 0.0, {}
+    for i, (name, c, E, map_name, odd) in enumerate(cases):
+        _static, cells = static_inputs(c, map_name, pad=16 if map_name else 0)
+        args, out, err, overflowed = held(name, c, laser_states(c, E, 20 + i, DEVICE, odd=odd),
+                                          cells)
+        worst = max(worst, err)
+        timed.setdefault("empty", (args, out))
+        if "Cs = 1" in name:
+            check(overflowed > 0, "the Cs = 1 case should overflow")
+    for name in band.CASES:
+        for dtype in ("float32", "float64"):
+            c, state, cells = band.build_case(name, dtype, DEVICE)
+            worst = max(worst, held(f"{dtype[5:]}-bit band case {name}", c, state, cells)[2])
+    # full width on map 002 (9 candidates + 84 cells + 16 padding rows a
+    # block), and on the route without wedge culling (B = 1, S = A)
+    _static, cells = static_inputs(cfg, "002", pad=16)
+    args, out, _err, _ovf = held("f32 full width, map 002", cfg,
+                                 laser_states(cfg, E_LASER, 25, DEVICE), cells)
+    timed["map_002"] = (args, out)
+    b1 = laser_config(True, laserscan_num_candidate_discs=None)
+    _static, cells = static_inputs(b1)
+    args, out, _err, _ovf = held("f32 full width, B = 1", b1,
+                                 laser_states(b1, E_LASER, 26, DEVICE), cells)
+    timed["b1"] = (args, out)
+
+    res = {}
+    for key, (args, out) in timed.items():
+        res[key] = {"ms": graph_ms(lambda: laser_fused.beam_compacted_cuda(*args)),
+                    **k3_bound(args, out, band)}
+    args = timed["empty"][0]
+    plain_ms = graph_ms(lambda: laser_fused.beam_compacted_plain(*args), inner=5)
+    empty = res["empty"]
+    print(json.dumps({"kernel": "laser_fused", "plain_ms": plain_ms, "library_ms": None,
+                      "launches_per_step": 1, "shape": [E_LASER, A_LASER, L_LASER], **res}),
           flush=True)
     return {"name": "laser_fused", "route": "cuda",
             "source": "gym_collision_avoidance_torch/csrc/laser_fused.cu",
             "replaces": "gym_collision_avoidance_tpu/ops/laser_pallas.py:211",
-            "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "launches": None, "max_abs_err": worst, "ms": empty["ms"], "plain_ms": plain_ms,
+            "bound_ms": empty["bound_ms"], "bound_by": empty["bound_by"], "library_ms": None,
+            "bound_ms_window": empty["bound_ms_window"],
+            "bound_ms_bytes": empty["bound_ms_bytes"],
+            "ms_map_002": res["map_002"]["ms"], "bound_ms_map_002": res["map_002"]["bound_ms"],
+            "ms_b1": res["b1"]["ms"], "bound_ms_b1": res["b1"]["bound_ms"]}
 
 
 def phase_laser_serving(fast, kernels):
@@ -685,6 +727,8 @@ def main():
     k1 = phase_kernels(pairwise)
     k2 = phase_k2()
     k3 = phase_k3()
+    for k in (k2, k3):
+        k["launch_floor_ms"] = k1["launch_floor_ms"]
     for k in kernels.values():
         k.LAUNCHES = 0
     k1["launches"] = phase_serving(pairwise)

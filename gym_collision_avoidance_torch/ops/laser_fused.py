@@ -53,9 +53,6 @@ from gym_collision_avoidance_torch.ops.raymarch import (
 # Kernel launches since import (or since a caller last set it to 0).
 LAUNCHES = 0
 
-# Slots a beam may keep; the kernel holds them in registers.
-MAX_SLOTS = 8
-
 _SYMBOLS = {torch.float32: "laser_fused_f32", torch.float64: "laser_fused_f64"}
 _FUNCS = {}
 
@@ -171,15 +168,19 @@ def _kernel_func(dtype):
 
 def beam_compacted_cuda(pos_e, gi_e, gj_e, rsq_e, cos_a, sin_a, gi_d, gj_d, irsq_d,
                         relx, rely, rel2, ro2, span_ok, cfg, Wn, Cs):
-    """Launch the CUDA kernel on the current stream (no synchronise)."""
+    """Launch the CUDA kernel on the current stream (no synchronise).
+
+    The kernel's per-warp wedge pre-screen takes each block's beams in the
+    sensor's order: angles rising by less than pi over 32 beams, as
+    ``obs/sensors.py:beam_angles`` plus a heading gives them."""
     global LAUNCHES
     dtype = pos_e.dtype
     if dtype not in _SYMBOLS:
         raise TypeError(f"pos_e must be float32 or float64, got {dtype}")
     if pos_e.dim() != 3 or pos_e.shape[-1] != 2:
         raise ValueError(f"pos_e must be [E, Ae, 2], got {tuple(pos_e.shape)}")
-    if not 1 <= Cs <= MAX_SLOTS:
-        raise ValueError(f"the kernel keeps 1 to {MAX_SLOTS} slots a beam, got {Cs}")
+    if Cs < 1:
+        raise ValueError(f"the kernel needs Cs >= 1 slots a beam, got {Cs}")
     E, Ae = pos_e.shape[:2]
     L = cos_a.shape[-1]
     if gi_d.dim() != 4:

@@ -117,7 +117,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         tsens.laserscan_sparse(state, cfg, cells)
     args = list(calls[0])
     with pytest.raises(ValueError, match="slots"):
-        laser_fused.beam_compacted_cuda(*args[:-1], laser_fused.MAX_SLOTS + 1)
+        laser_fused.beam_compacted_cuda(*args[:-1], 0)
     bad = list(args)
     bad[6] = args[6].to(torch.int64)
     with pytest.raises(TypeError):
