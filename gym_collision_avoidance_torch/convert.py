@@ -7,8 +7,9 @@ runs ``jax.device_get``, so this package never imports jax), and
 :func:`state_to_numpy` converts back for comparison.  Every leaf goes both
 ways, the laser ones included (``laserscan_history`` ``[E, A, P, L]`` in
 the state's dtype, ``laserscan_count`` int32); the static map and its cell
-list are numpy arrays both packages take as they are.  Loading the
-GA3C-CADRL weights belongs to ROADMAP.md §1 item 9.
+list are numpy arrays both packages take as they are.
+:func:`ga3c_params_from_numpy` builds the port's GA3C-CADRL module from the
+JAX package's parameter dict, so both packages run the same weights.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from gym_collision_avoidance_torch.core.device import resolve_device
 from gym_collision_avoidance_torch.core.state import EnvState
+from gym_collision_avoidance_torch.models.ga3c_cadrl import GA3CCADRL
 
 _INT_LEAVES = ("step_num", "num_other_agents_observed", "laserscan_count",
                "policy_id", "dynamics_id", "episode_step")
@@ -47,3 +49,11 @@ def state_from_numpy(leaves: Dict[str, np.ndarray], device=None) -> EnvState:
 def state_to_numpy(state: EnvState) -> Dict[str, np.ndarray]:
     """``{field name: numpy array}`` of a state, on the host."""
     return {name: leaf.detach().cpu().numpy() for name, leaf in state.items()}
+
+
+def ga3c_params_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> GA3CCADRL:
+    """The port's :class:`GA3CCADRL` from the JAX package's GA3C-CADRL
+    parameter dict as numpy arrays (``jax.device_get(load_params(...))``).
+    The weights keep their dtype (float32, float64 or bfloat16) and the
+    normalisation constants stay float32.  ``device=None`` means CUDA."""
+    return GA3CCADRL(arrays).to(resolve_device(device))

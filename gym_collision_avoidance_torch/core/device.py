@@ -7,6 +7,8 @@ CPU (the tests) says so.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -31,6 +33,23 @@ def resolve_device(device=None) -> torch.device:
 def torch_dtype(name: str) -> torch.dtype:
     """``EnvConfig.dtype`` string -> torch dtype."""
     return {"float32": torch.float32, "float64": torch.float64}[name]
+
+
+def params_to_device(params, device):
+    """A copy of a policy ``params`` dict on ``device``: modules (the
+    GA3C-CADRL weights) are copied there, so the caller's stays where it
+    was; tensors move and numpy arrays become tensors there; other values
+    stay."""
+    if params is None:
+        return None
+    out = {}
+    for key, value in params.items():
+        if isinstance(value, torch.nn.Module):
+            value = copy.deepcopy(value).to(device)
+        elif isinstance(value, (torch.Tensor, np.ndarray)):
+            value = torch.as_tensor(value, device=device)
+        out[key] = value
+    return out
 
 
 def as_device_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:

@@ -19,6 +19,7 @@ import torch
 from gym_collision_avoidance_torch.config import EnvConfig
 from gym_collision_avoidance_torch.core.device import (
     as_device_tensor,
+    params_to_device,
     resolve_device,
     torch_dtype,
 )
@@ -74,6 +75,8 @@ def make_autoreset_step(
     Args:
         pool: ``[N, A, 6]`` (or ``[N, A, 7]``) scenario pool.
         policy_id: ``[A]`` int policy ids applied to every episode.
+        params: policy parameters (``{"ga3c_cadrl": GA3CCADRL}``, RVO's
+            ``"rvo_use_noncoop"`` flags); copied to the device once here.
         device: ``None`` means CUDA.
         static_map / static_cells: map inputs of laserscan and occupancy
             configs, as in ``env_step``; moved to the device once here.
@@ -101,6 +104,8 @@ def make_autoreset_step(
             "(laserscan_entry_window / laserscan_num_candidate_discs); build the "
             "autoreset step with return_info=True and check "
             "info['laserscan_exactness_overflow'] every step")
+    # the weights and flags go to the device once, not in every step
+    params = params_to_device(params, device)
     if static_map is not None:
         static_map = as_device_tensor(static_map, torch.bool, device)
     if static_cells is not None:

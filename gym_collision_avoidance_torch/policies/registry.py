@@ -3,8 +3,9 @@
 
 Every internal policy is a kernel ``(state, cfg, params) -> [E, A, 2]`` over
 the whole batch; the per-agent choice is a masked select on ``policy_id``.
-This slice ports NonCoop, Static and the external mappers; the network and
-ORCA policies raise ``NotImplementedError`` naming their ROADMAP item.
+NonCoop, Static, the external mappers, GA3C-CADRL (``policies/ga3c.py``) and
+RVO (``policies/rvo.py``) are ported; SA-CADRL and DRL-Long raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from gym_collision_avoidance_torch.policies import ga3c, rvo
 
 # -- policy type ids (state.policy_id values), as in the JAX package --------
 EXTERNAL = 0       # envs/policies/ExternalPolicy.py (identity passthrough)
@@ -48,8 +51,6 @@ STILL_LEARNING_POLICIES = (LEARNING, LEARNING_GA3C)
 
 # Internal policies of later slices -> the ROADMAP item that ports them.
 UNPORTED_POLICIES = {
-    RVO: "ROADMAP.md §1 item 8 (ORCA/RVO)",
-    GA3C_CADRL: "ROADMAP.md §1 item 9 (GA3C-CADRL)",
     CADRL: "ROADMAP.md §1 item 10 (SA-CADRL)",
     DRL_LONG: "ROADMAP.md §1 item 13 (DRL-Long)",
 }
@@ -89,7 +90,19 @@ def static_kernel(state, cfg, params):
 INTERNAL_KERNELS = {
     STATIC: static_kernel,
     NONCOOP: noncoop_kernel,
+    GA3C_CADRL: ga3c.ga3c_cadrl_kernel,
+    RVO: rvo.rvo_kernel,
 }
+
+
+def internal_kernel(pid: int):
+    """The kernel of internal policy ``pid``."""
+    if pid in UNPORTED_POLICIES:
+        raise NotImplementedError(f"policy id {pid}: {UNPORTED_POLICIES[pid]}")
+    kernel = INTERNAL_KERNELS.get(pid)
+    if kernel is None:
+        raise NotImplementedError(f"internal policy id {pid} has no kernel")
+    return kernel
 
 
 def map_external_actions(state, ext_actions, cfg):
@@ -134,13 +147,8 @@ def compute_actions(state, ext_actions, cfg, params, active_policies):
     for pid in active_policies:
         if pid in EXTERNAL_POLICIES:
             continue
-        if pid in UNPORTED_POLICIES:
-            raise NotImplementedError(f"policy id {pid}: {UNPORTED_POLICIES[pid]}")
-        kernel = INTERNAL_KERNELS.get(pid)
-        if kernel is None:
-            raise NotImplementedError(f"internal policy id {pid} has no kernel")
         actions = torch.where((state.policy_id == pid)[..., None],
-                              kernel(state, cfg, params), actions)
+                              internal_kernel(pid)(state, cfg, params), actions)
 
     # Done agents contribute a zero action (collision_avoidance_env.py:311-312).
     return torch.where(state.is_done[..., None], torch.zeros_like(actions), actions)

@@ -10,10 +10,15 @@ that take the most device time.  The card's ``nvidia-smi`` name and power
 limit go beside the numbers.
 
 ``--config main`` is the main path (4 NonCoop agents, 64-case pool, float32,
-evaluate mode, default 16384 envs).  ``laser_full`` and ``laser_fast`` are
-the ``ga3c20_laser`` configuration of ``scripts/bench_all.py`` (20 agents on
-the 8 m circle, 512 beams, the empty 20 x 20 m map, default 256 envs) with
-NonCoop agents, without and with its fast laserscan route (kernel K2 or K3).
+evaluate mode, default 16384 envs).  ``ga3c4`` and ``orca4`` are
+``scripts/bench_all.py``'s ``bench_ga3c4_serving`` (4 GA3C-CADRL agents,
+iros18 weights, 19 slots sorted closest last, default 4096 envs) and
+``bench_orca4`` (4 RVO agents, default 16384 envs) on the same pool.
+``laser_full`` and ``laser_fast`` are its ``ga3c20_laser`` configuration (20
+GA3C-CADRL agents on the 8 m circle, 512 beams, the empty 20 x 20 m map,
+default 256 envs), without and with its fast laserscan route (kernel K2 or
+K3).  ``gemm_device_ms_per_step`` sums the matrix-product kernels (cuBLAS
+names: gemm, xmma, gemv).
 
     python3 scripts/profile_torch_serving.py [--config main] [--num-envs N]
         [--steps 32] [--trace results/serving_trace.json]
@@ -36,9 +41,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("main", "laser_full", "laser_fast"), default="main")
+    ap.add_argument("--config", choices=("main", "ga3c4", "orca4", "laser_full", "laser_fast"),
+                    default="main")
     ap.add_argument("--num-envs", type=int, default=None,
-                    help="default 16384 for main, 256 for the laser configs")
+                    help="default 16384 for main and orca4, 4096 for ga3c4, 256 for the "
+                         "laser configs")
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args()
@@ -51,14 +58,21 @@ def main():
     from gym_collision_avoidance_torch import EnvConfig
     from gym_collision_avoidance_torch.harness.serving import AutoresetServer
     from gym_collision_avoidance_torch.maps import grid
+    from gym_collision_avoidance_torch.models import ga3c_cadrl
     from gym_collision_avoidance_torch.policies import registry
     from gym_collision_avoidance_torch.scenarios import presets, random_cases
 
-    if args.config == "main":
-        args.num_envs = args.num_envs or 16384
-        cfg = EnvConfig(dtype="float32", done_mode="evaluate")
+    if args.config in ("main", "ga3c4", "orca4"):
+        args.num_envs = args.num_envs or (4096 if args.config == "ga3c4" else 16384)
+        kw = dict(max_num_other_agents_observed=19,
+                  agent_sorting_method="closest_last") if args.config == "ga3c4" else {}
+        cfg = EnvConfig(dtype="float32", done_mode="evaluate", **kw)
         pool = random_cases.scenario_pool(64, 4, seed=0, side_length=4.0)
-        server = AutoresetServer(cfg, pool, np.full(4, registry.NONCOOP, np.int32),
+        policy = {"main": registry.NONCOOP, "ga3c4": registry.GA3C_CADRL,
+                  "orca4": registry.RVO}[args.config]
+        params = ({"ga3c_cadrl": ga3c_cadrl.load_params()} if args.config == "ga3c4"
+                  else None)
+        server = AutoresetServer(cfg, pool, np.full(4, policy, np.int32), params=params,
                                  num_envs=args.num_envs, steps_per_dispatch=args.steps)
     else:
         args.num_envs = args.num_envs or 256
@@ -71,7 +85,8 @@ def main():
         pool = np.concatenate([sc.pos, sc.goal, sc.pref_speed[:, None],
                                sc.radius[:, None]], -1)[None]
         static = grid.load_static_map(cfg, None)
-        server = AutoresetServer(cfg, pool, np.full(20, registry.NONCOOP, np.int32),
+        server = AutoresetServer(cfg, pool, np.full(20, registry.GA3C_CADRL, np.int32),
+                                 params={"ga3c_cadrl": ga3c_cadrl.load_params()},
                                  num_envs=args.num_envs, steps_per_dispatch=args.steps,
                                  sensors=("other_agents_states", "laserscan"),
                                  static_map=static, static_cells=grid.occupied_cell_list(static))
@@ -94,8 +109,9 @@ def main():
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    def share(kernel):
-        return sum(t for name, (_, t) in by_name.items() if kernel in name) / 1e3 / args.steps
+    def share(*kernel):
+        return sum(t for name, (_, t) in by_name.items()
+                   if any(k in name.lower() for k in kernel)) / 1e3 / args.steps
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -109,6 +125,7 @@ def main():
         "k1_device_ms_per_step": share("pairwise_kernel"),
         "k2_device_ms_per_step": share("raymarch_kernel"),
         "k3_device_ms_per_step": share("laser_fused_kernel"),
+        "gemm_device_ms_per_step": share("gemm", "xmma", "gemv"),
         "top_kernels": [{"name": name[:80], "calls": n, "device_ms": t / 1e3}
                         for name, (n, t) in top],
     }}))

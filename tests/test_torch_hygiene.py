@@ -16,7 +16,8 @@ import gym_collision_avoidance_torch as pkg
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 for name in ("maps.grid", "ops.pairwise", "ops.raymarch", "ops.laser_fused", "ops.build",
-             "obs.sensors", "env.step", "harness.serving", "convert"):
+             "obs.sensors", "env.step", "harness.serving", "convert", "models.ga3c_cadrl",
+             "policies.ga3c", "ops.orca", "policies.rvo", "core.prng"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gym_collision_avoidance_tpu"))
@@ -72,3 +73,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     st = autoreset.state_from_case(cfg, pool, pid, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         runner.rollout(st, cfg, 1)
+
+
+def test_policy_ids_6_and_8_are_ported():
+    """GA3C-CADRL (6) and RVO (8) have kernels; SA-CADRL (7) and DRL-Long
+    (9) still raise, naming their ROADMAP items."""
+    from gym_collision_avoidance_torch.policies import ga3c, registry, rvo
+
+    assert registry.internal_kernel(registry.GA3C_CADRL) is ga3c.ga3c_cadrl_kernel
+    assert registry.internal_kernel(registry.RVO) is rvo.rvo_kernel
+    assert set(registry.UNPORTED_POLICIES) == {registry.CADRL, registry.DRL_LONG}
+    for pid, item in ((registry.CADRL, "item 10"), (registry.DRL_LONG, "item 13")):
+        with pytest.raises(NotImplementedError, match=item):
+            registry.internal_kernel(pid)
+
+
+def test_ga3c_weights_load_without_cuda_only_on_request(no_cuda):
+    from gym_collision_avoidance_torch.models import ga3c_cadrl
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ga3c_cadrl.load_params()
+    net = ga3c_cadrl.load_params("ppo_selfplay_4agent_curr", device="cpu")
+    assert net.width == 26 and net.lstm_kernel.device.type == "cpu"

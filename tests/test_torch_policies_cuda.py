@@ -1,0 +1,93 @@
+"""GA3C-CADRL and ORCA on the card against the CPU.
+
+Imports neither JAX nor ``tests/conftest.py``'s setup, so it runs on a
+machine with a CUDA card and no JAX::
+
+    python -m pytest --noconftest -q -s tests/test_torch_policies_cuda.py
+
+Without a card every case skips.  The GA3C net in float32 on the card, TF32
+off, picks the same action as the float64 net on the CPU for at least 99.9%
+of 16384 seeded obs (float32 rounding flips near-ties); with TF32 on the
+mismatch count is printed, not held.  ORCA in float32 on mid-episode
+``orca4`` states agrees with the CPU within rtol 1e-4 / atol 1e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gym_collision_avoidance_torch import EnvConfig
+from gym_collision_avoidance_torch.env import autoreset
+from gym_collision_avoidance_torch.models import ga3c_cadrl
+from gym_collision_avoidance_torch.ops import orca
+from gym_collision_avoidance_torch.policies import registry, rvo
+from gym_collision_avoidance_torch.scenarios import random_cases
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _obs(seed, B, width=138):
+    """Seeded raw obs of the network's layout, 0 to 19 others visible."""
+    rng = np.random.RandomState(seed)
+    K = (width - 5) // 7
+    x = np.zeros((B, width), np.float32)
+    x[:, 0] = rng.randint(0, K + 1, B)
+    x[:, 1] = rng.uniform(0.0, 10.0, B)
+    x[:, 2] = rng.uniform(-np.pi, np.pi, B)
+    x[:, 3] = rng.uniform(0.5, 1.5, B)
+    x[:, 4] = rng.uniform(0.2, 0.6, B)
+    lo = np.array([-5, -5, -1, -1, 0.2, 0.4, 0.0])
+    hi = np.array([5, 5, 1, 1, 0.6, 1.2, 8.0])
+    others = rng.uniform(lo, hi, (B, K, 7))
+    others[np.arange(K)[None, :] >= x[:, :1]] = 0.0
+    x[:, 5:] = others.reshape(B, -1)
+    return torch.as_tensor(x)
+
+
+@pytest.mark.cuda
+def test_ga3c_card_matches_cpu_float64(cuda_device):
+    x = _obs(0, 16384)
+    want, _ = ga3c_cadrl.forward(ga3c_cadrl.load_params(dtype=torch.float64, device="cpu"),
+                                 x.double())
+    net = ga3c_cadrl.load_params(device=cuda_device)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    got, _ = ga3c_cadrl.forward(net, x.to(cuda_device))
+    agree = (got.argmax(-1).cpu() == want.argmax(-1)).double().mean().item()
+    assert agree >= 0.999, agree
+    torch.testing.assert_close(got.cpu().double(), want, rtol=0, atol=1e-5)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32, _ = ga3c_cadrl.forward(net, x.to(cuda_device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mismatched = int((tf32.argmax(-1).cpu() != want.argmax(-1)).sum())
+    print(f"\nGA3C float32 on {torch.cuda.get_device_name(0)}: "
+          f"{int((got.argmax(-1).cpu() != want.argmax(-1)).sum())} of 16384 argmax mismatches "
+          f"with TF32 off, {mismatched} with TF32 on; largest prob difference with TF32 on "
+          f"{float((tf32.cpu().double() - want).abs().max()):.3g}")
+
+
+@pytest.mark.cuda
+def test_orca_card_matches_cpu_float32(cuda_device):
+    cfg = EnvConfig(dtype="float32", done_mode="evaluate")
+    pool = random_cases.scenario_pool(64, 4, seed=0, side_length=4.0)
+    pid = np.full(4, registry.RVO, np.int32)
+    E = 4096
+    step = autoreset.make_autoreset_step(cfg, pool, pid, (registry.RVO,), device=cuda_device)
+    st = autoreset.state_from_case(cfg, pool[np.arange(E) % 64], pid, device=cuda_device)
+    c = torch.arange(E, dtype=torch.int32, device=cuda_device)
+    for _ in range(12):
+        st, c = step(st, c)[:2]
+    got, branch = orca.orca_solve(*rvo.orca_inputs(st, cfg, None))
+    want, want_branch = orca.orca_solve(*rvo.orca_inputs(st.to("cpu"), cfg, None))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    print(f"\nORCA float32 on {torch.cuda.get_device_name(0)}: largest difference "
+          f"{float((got.cpu() - want).abs().max()):.3g}, "
+          f"{int((branch.cpu() != want_branch).sum())} of {E * 4} LP branches differ, "
+          f"{int((want_branch < 3).sum())} agents in LP3")

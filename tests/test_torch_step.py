@@ -199,6 +199,12 @@ def test_unported_pieces_raise():
     # or a cell list is a usage error, as in the JAX package
     with pytest.raises(ValueError, match="static_map"):
         t_env_step(st, None, cfg, sensors=("laserscan",))
-    for pid, item in ((8, "item 8"), (6, "item 9"), (7, "item 10"), (9, "item 13")):
+    for pid, item in ((7, "item 10"), (9, "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             t_env_step(st, None, cfg, active_policies=(pid,))
+    # GA3C-CADRL (6) and RVO (8) are ported; GA3C needs its weights
+    with pytest.raises(ValueError, match="ga3c_cadrl"):
+        t_env_step(st.replace(policy_id=torch.full_like(st.policy_id, 6)), None, cfg,
+                   active_policies=(6,))
+    t_env_step(st.replace(policy_id=torch.full_like(st.policy_id, 8)), None, cfg,
+               active_policies=(8,))
