@@ -28,11 +28,17 @@ before and read just after:
   GA3C-CADRL agents, 512 beams, the empty 20 x 20 m map, E = 256) with no
   fast route (kernels K1 and K2);
 * the laser path, fast route: the same with its wedge culling, 12-sample
-  windows and 4 beam slots (kernels K1 and K3).
+  windows and 4 beam slots (kernels K1 and K3);
+* cadrl4: ``scripts/bench_all.py``'s ``bench_cadrl4``, 4 SA-CADRL agents on
+  the 3 m circle with the ``no_constr`` value net, E = 4096 (K1);
+* drl2: ``scripts/eval_drl_long.py``'s world, a DRL-Long agent (the shipped
+  ``drl_long_2agent_rvo_tpu`` net) against an RVO agent on the empty
+  16 x 16 m map, 512 beams, the full pass, E = 4096 (kernels K1 and K2).
 
 It checks the fast route against the full pass wherever its exactness guard
-is quiet, and one env step on the card against the same step on the CPU:
-on the main path, on ga3c4 and orca4 (GA3C action indices, ORCA
+is quiet, and one env step on the card against the same step on the CPU,
+each env on its own pool case: on the main path, on ga3c4, orca4, cadrl4
+and drl2 (GA3C and SA-CADRL action indices, DRL-Long actions, ORCA
 velocities and LP branches) and on both laser routes.  Every phase raises
 on failure, so the exit code is 0 only if all passed.  The last three lines
 of its output are the kernels' JSON summary (with each kernel's launches on
@@ -46,6 +52,7 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -59,13 +66,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # float32 outside the tensor cores
 
 DEVICE = "cuda"
+# the main path's width (gym_collision_avoidance_torch/harness/paths.py
+# defines every path; these are the kernels' shapes on two of them)
 E_MAIN, A_MAIN = 16384, 4
 STEPS_PER_DISPATCH, DISPATCHES = 128, 4
-# scripts/bench_all.py: bench_ga3c4_serving runs 16384 // 4 envs, bench_orca4 16384
-E_GA3C4, E_ORCA4 = 4096, 16384
 # the laser path (scripts/bench_all.py:bench_ga3c20_laser: 4096 // 16 envs)
 E_LASER, A_LASER, L_LASER = 256, 20, 512
 LASER_STEPS, LASER_DISPATCHES = 64, 4
+E_DRL2_STEP = 64       # envs of drl2's whole compared step
+POLICY_STEPS, POLICY_DISPATCHES = 64, 3
 KERNEL_SOURCES = ("pairwise", "raymarch", "laser_fused")
 
 
@@ -203,64 +212,40 @@ def phase_kernels(pairwise):
             "launch_floor_ms": launch_floor_ms}
 
 
-def main_path_config():
-    from gym_collision_avoidance_torch import EnvConfig
-    from gym_collision_avoidance_torch.policies import registry
-    from gym_collision_avoidance_torch.scenarios import random_cases
+def serving_path(name):
+    """The path ``name`` of ``gym_collision_avoidance_torch/harness/paths.py``
+    with its weights and map on the card."""
+    from gym_collision_avoidance_torch.harness import paths
 
-    # the loop bench.py:_bench_serving times
-    cfg = EnvConfig(dtype="float32", done_mode="evaluate")
-    pool = random_cases.scenario_pool(64, A_MAIN, seed=0, side_length=4.0)
-    policy_id = np.full(A_MAIN, registry.NONCOOP, np.int32)
-    return cfg, pool, policy_id
+    return paths.serving_path(name, DEVICE)
 
 
-def ga3c4_config():
-    """``scripts/bench_all.py:bench_ga3c4_serving``: 4 GA3C-CADRL agents with
-    the iros18 weights, 19 observed slots sorted closest last."""
-    from gym_collision_avoidance_torch import EnvConfig
-    from gym_collision_avoidance_torch.models import ga3c_cadrl
-    from gym_collision_avoidance_torch.policies import registry
-    from gym_collision_avoidance_torch.scenarios import random_cases
-
-    cfg = EnvConfig(dtype="float32", done_mode="evaluate", max_num_other_agents_observed=19,
-                    agent_sorting_method="closest_last")
-    pool = random_cases.scenario_pool(64, A_MAIN, seed=0, side_length=4.0)
-    params = {"ga3c_cadrl": ga3c_cadrl.load_params(device=DEVICE)}
-    return cfg, pool, np.full(A_MAIN, registry.GA3C_CADRL, np.int32), params
-
-
-def orca4_config():
-    """``scripts/bench_all.py:bench_orca4``: 4 RVO agents."""
-    from gym_collision_avoidance_torch.policies import registry
-
-    cfg, pool, _ = main_path_config()
-    return cfg, pool, np.full(A_MAIN, registry.RVO, np.int32), None
-
-
-def phase_serving(name, kernels, cfg, pool, policy_id, params, num_envs):
-    """Drive AutoresetServer at ``num_envs``; the counts go to 0 after
-    construction, and K1 must launch once per step and no laser kernel."""
-    from gym_collision_avoidance_torch.harness.serving import AutoresetServer
-
-    server = AutoresetServer(cfg, pool, policy_id, num_envs=num_envs, params=params,
-                             steps_per_dispatch=STEPS_PER_DISPATCH, device=DEVICE)
+def phase_serving(name, kernels, path, laser=None, steps=STEPS_PER_DISPATCH,
+                  dispatches=DISPATCHES):
+    """Drive ``path``'s AutoresetServer at its full width; the counts go to
+    0 after construction, and K1 must launch once per step, the ``laser``
+    kernel (``"raymarch"`` or ``"laser_fused"``) once per step if given, and
+    no other laser kernel."""
+    server = path.server(steps_per_dispatch=steps, device=DEVICE)
+    num_envs, policy_id = path.num_envs, path.policy_id
     torch.cuda.synchronize()
     for k in kernels.values():
         k.LAUNCHES = 0
     server.dispatch()                                   # warm-up dispatch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(DISPATCHES):
+    for _ in range(dispatches):
         out = server.dispatch()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {n: k.LAUNCHES for n, k in kernels.items()}
-    steps = (DISPATCHES + 1) * STEPS_PER_DISPATCH
-    check(launches["pairwise"] == steps,
-          f"{name}: K1 launched {launches['pairwise']} times in {steps} steps")
-    check(launches["raymarch"] == 0 and launches["laser_fused"] == 0,
-          f"{name}: a laser kernel launched")
+    total = (dispatches + 1) * steps
+    check(launches["pairwise"] == total,
+          f"{name}: K1 launched {launches['pairwise']} times in {total} steps")
+    for kernel in ("raymarch", "laser_fused"):
+        want = total if kernel == laser else 0
+        check(launches[kernel] == want,
+              f"{name}: {kernel} launched {launches[kernel]} times, not {want}")
 
     for leaf_name, leaf in server.states().items():
         if leaf.is_floating_point():
@@ -268,27 +253,41 @@ def phase_serving(name, kernels, cfg, pool, policy_id, params, num_envs):
     check(bool(torch.isfinite(out["mean_reward"]).all()), f"{name}: non-finite reward")
     episodes = server.episodes_completed()
     check(episodes > 0, f"{name}: no episode completed")
-    timed = DISPATCHES * STEPS_PER_DISPATCH
-    line = {"num_envs": num_envs, "agents": A_MAIN, "steps": steps, "timed_steps": timed,
+    timed = dispatches * steps
+    line = {"num_envs": num_envs, "agents": len(policy_id), "steps": total, "timed_steps": timed,
             "seconds": seconds, "env_steps_per_s": timed * num_envs / seconds,
             "ms_per_step": 1e3 * seconds / timed, "episodes_completed": episodes,
-            "k1_launches": launches["pairwise"]}
+            "launches": launches}
+    if "laserscan" in path.sensors:
+        line["beams"] = path.cfg.laserscan_length
+    if "exactness_overflow" in out:
+        line["exactness_overflow"] = server.exactness_overflow()
+        line["steps_with_overflow"] = int(out["exactness_overflow"].sum())
     print(json.dumps({name: line}), flush=True)
-    return launches["pairwise"], server.states()
+    return launches, server.states()
+
+
+ANGLE_LEAVES = ("state.heading_ego_frame", "obs.heading_ego_frame")
+LASER_LEAVES = ("state.laserscan_history", "obs.laserscan")
 
 
 def compare_steps(name, cpu, card, rtol, atol, envs=None, slack=None):
     """Hold one ``env_step``'s outputs on the card against the CPU's, on the
     envs of the ``[E]`` mask ``envs`` (all by default): discrete outputs
     equal, floats within ``rtol`` / ``atol``, plus ``slack[leaf]`` (a tensor
-    of the leaf's shape) where given.  Returns the largest float difference
-    and the count of entries that needed their slack."""
+    of the leaf's shape) where given.  The headings in the goal frame
+    compare modulo 2 pi (an agent facing away from its goal sits at +-pi,
+    where an ulp picks the end of the range).  Laserscan ranges must agree
+    on at least 99.99% of their entries (float32 sin/cos differ by ulps
+    between the devices).  Returns the largest float difference, the count
+    of entries that needed their slack, the count of laser entries that
+    differ and the count compared."""
     pairs = [(f"state.{k}", v, getattr(card[0], k)) for k, v in cpu[0].items()]
     pairs += [(f"obs.{k}", v, card[1][k]) for k, v in cpu[1].items()]
     pairs += [("rewards", cpu[2], card[2]), ("game_over", cpu[3], card[3])]
     pairs += [(f"info.{k}", v, card[4][k]) for k, v in cpu[4].items()]
     slack = slack or {}
-    worst, slackened = 0.0, 0
+    worst, slackened, laser_diff, laser_n = 0.0, 0, 0, 0
     for leaf, want, got in pairs:
         got = got.cpu()
         check(got.shape == want.shape and got.dtype == want.dtype, f"{name} {leaf} shape/dtype")
@@ -296,7 +295,12 @@ def compare_steps(name, cpu, card, rtol, atol, envs=None, slack=None):
         if envs is not None:
             got, want = got[envs], want[envs]
             extra = None if extra is None else extra[envs]
-        if want.is_floating_point():
+        if leaf in LASER_LEAVES:
+            laser_diff += int((got != want).sum())
+            laser_n += want.numel()
+        elif want.is_floating_point():
+            if leaf in ANGLE_LEAVES:
+                got = want + (torch.remainder(got - want + math.pi, 2 * math.pi) - math.pi)
             close = torch.isclose(got, want, rtol=rtol, atol=atol, equal_nan=True)
             if extra is not None:
                 loose = (got - want).abs() <= atol + rtol * want.abs() + extra
@@ -304,56 +308,104 @@ def compare_steps(name, cpu, card, rtol, atol, envs=None, slack=None):
                 close |= loose
             bad = int((~close).reshape(len(close), -1).any(dim=1).sum()) if close.dim() else 0
             check(bool(close.all()), f"{name} {leaf} differs beyond rtol {rtol} / atol {atol} "
-                  f"in {bad} envs, by up to {max_abs_err(got, want)}")
+                  f"in {bad} envs, by up to {max_abs_err(got, want)}; "
+                  f"{offenders(cpu, card, envs, close, got, want)}")
             worst = max(worst, max_abs_err(got, want))
         else:
             check(torch.equal(got, want), f"{name} {leaf} differs")
-    return worst, slackened
+    check(laser_diff <= 1e-4 * max(laser_n, 1),
+          f"{name} laserscan: {laser_diff} of {laser_n} differ")
+    return worst, slackened, laser_diff, laser_n
+
+
+def offenders(cpu, card, envs, close, got, want, count=4):
+    """The first entries outside the tolerance, with their agent's speed,
+    heading and heading change on both devices, for the failure message."""
+    cs, ks = cpu[0], card[0].to("cpu")
+    if envs is not None:
+        cs, ks = cs.map(lambda x: x[envs]), ks.map(lambda x: x[envs])
+    rows = []
+    for idx in (~close).nonzero()[:count].tolist():
+        row = {"index": idx, "card": float(got[tuple(idx)]), "cpu": float(want[tuple(idx)])}
+        if len(idx) >= 2 and cs.speed.dim() == 2 and idx[1] < cs.speed.shape[1]:
+            ea = tuple(idx[:2])
+            for leaf in ("speed", "heading", "delta_heading"):
+                row[leaf] = [float(getattr(ks, leaf)[ea]), float(getattr(cs, leaf)[ea])]
+        rows.append(row)
+    return json.dumps(rows)
 
 
 def goal_frame_slack(cpu, card):
-    """Extra absolute tolerance for the outputs an agent sees in its goal
-    frame (``ref_prll``, ``ref_orth``: the unit vector to its goal), from
-    this step's own differences between the devices.  Near its goal the
-    frame is ill-conditioned: positions a few ulps apart turn it by up to
-    2 |dpos| / dist_to_goal, and each heading relative to it moves by that
-    turn, each vector projected on it by the turn times the vector's length.
+    """Extra absolute tolerance for the outputs that a few ulps of position or
+    heading move by more than the tolerance, from this step's own
+    differences between the devices.
+
+    Near its goal an agent's frame (``ref_prll``, ``ref_orth``: the unit
+    vector to its goal) is ill-conditioned: positions a few ulps apart turn
+    it by up to 2 |dpos| / dist_to_goal, and each heading relative to it
+    moves by that turn, each vector projected on it by the turn times the
+    vector's length.  A heading change, a heading relative to the frame,
+    and a velocity by its speed times it, move by the agent's heading
+    difference (the heading itself is held to the tolerance): RVO turns
+    ``atan2`` into a heading in [0, 2 pi), where an ulp of ``atan2`` becomes
+    several ulps of a heading near 2 pi.  That slack is granted only to an
+    agent whose headings are at most 8 ulps of 2 pi apart; the leaves of
+    any other agent are held without it.
     The slack is 3 times those first-order bounds (sqrt(2) for the
-    max-norm, and to spare).  Returns the slack of each leaf and the
-    largest turn."""
+    max-norm, and to spare).  Returns the slack of each leaf, the largest
+    turn and the count of agents whose headings are further apart."""
     cs, ks, obs = cpu[0], card[0].to("cpu"), cpu[1]
     dpos = (ks.pos - cs.pos).abs().amax(-1)                              # [E, A]
     turn = torch.maximum((ks.ref_prll - cs.ref_prll).abs(),
                          (ks.ref_orth - cs.ref_orth).abs()).amax(-1)     # [E, A]
     frame = (3 * dpos / cs.dist_to_goal.clamp(min=1e-6))[..., None]
+    dh = (torch.remainder(ks.heading - cs.heading + math.pi, 2 * math.pi) - math.pi).abs()
+    few_ulps = 8 * 4 * torch.finfo(cs.heading.dtype).eps                # ulp of [4, 8) is 4 eps
+    apart = int((dh > few_ulps).sum())
+    dh = torch.where(dh <= few_ulps, dh, torch.zeros_like(dh))
+    spin = 3 * dh * cs.speed                                             # [E, A]
+    others_spin = spin.amax(-1)                                          # [E]
 
     def projected(rows):
         """``[E, A, (K,) 7]`` sensed rows: their (x, y) and (vx, vy) pairs are
-        in the host's frame."""
-        t = 3 * turn.reshape(turn.shape + (1,) * (rows.dim() - 3))
+        in the host's frame, and (vx, vy) is another agent's velocity."""
+        shape = turn.shape + (1,) * (rows.dim() - 3)
+        t = 3 * turn.reshape(shape)
         out = torch.zeros_like(rows)
         out[..., 0:2] = (t * torch.hypot(rows[..., 0], rows[..., 1]))[..., None]
-        out[..., 2:4] = (t * torch.hypot(rows[..., 2], rows[..., 3]))[..., None]
+        out[..., 2:4] = (t * torch.hypot(rows[..., 2], rows[..., 3])
+                         + others_spin.reshape((-1,) + (1,) * (rows.dim() - 2)))[..., None]
         return out
 
     speed = torch.hypot(cs.vel_ego_frame[..., 0], cs.vel_ego_frame[..., 1])
+    heading = 3 * (turn + dh)
+    action = torch.zeros_like(cs.past_actions)
+    action[..., 1] = 3 * dh[..., None]
     slack = {"state.ref_prll": frame, "state.ref_orth": frame,
-             "state.heading_ego_frame": 3 * turn,
-             "state.vel_ego_frame": (3 * turn * speed)[..., None],
+             "state.heading_ego_frame": heading,
+             "state.delta_heading": 3 * dh, "state.past_actions": action,
+             "state.vel": spin[..., None], "state.past_vel": spin[..., None, None],
+             "state.vel_ego_frame": (3 * turn * speed + spin)[..., None],
              "state.other_agent_states": projected(cs.other_agent_states),
-             "state.sensed_others": projected(cs.sensed_others),
-             "obs.heading_ego_frame": (3 * turn)[..., None],
-             "obs.other_agents_states": projected(obs["other_agents_states"])}
-    return slack, float(turn.max())
+             "state.sensed_others": projected(cs.sensed_others)}
+    if "heading_ego_frame" in obs:
+        slack["obs.heading_ego_frame"] = heading[..., None]
+    if "other_agents_states" in obs:
+        slack["obs.other_agents_states"] = projected(obs["other_agents_states"])
+    return slack, float(turn.max()), apart
 
 
 def held_with_frame_slack(name, cpu, card, envs):
     """``compare_steps`` at ``phase_card_vs_cpu``'s tolerances with the goal
     frame's slack, on ``envs``; the numbers to print."""
-    slack, turn = goal_frame_slack(cpu, card)
-    worst, slackened = compare_steps(name, cpu, card, 1e-5, 1e-6, envs, slack)
-    return {"envs_compared": int(envs.sum()), "max_abs_err": worst,
-            "largest_goal_frame_turn": turn, "entries_within_frame_slack_only": slackened}
+    slack, turn, apart = goal_frame_slack(cpu, card)
+    worst, slackened, laser_diff, _ = compare_steps(name, cpu, card, 1e-5, 1e-6, envs, slack)
+    out = {"envs_compared": int(envs.sum()), "max_abs_err": worst,
+           "largest_goal_frame_turn": turn, "entries_within_frame_slack_only": slackened,
+           "agents_without_heading_slack": apart}
+    if "laserscan" in cpu[1]:
+        out["laser_entries_differing"] = laser_diff
+    return out
 
 
 def orca_times(state, cfg):
@@ -375,112 +427,256 @@ def orca_times(state, cfg):
 
 def phase_card_vs_cpu():
     """One env_step on the card and on the CPU from the same mid-episode
-    states: discrete outputs equal, floats to rtol 1e-5 / atol 1e-6."""
-    from gym_collision_avoidance_torch import env_step
+    states, each env on its own pool case: discrete outputs equal, floats to
+    rtol 1e-5 / atol 1e-6."""
     from gym_collision_avoidance_torch.env import autoreset
+    from gym_collision_avoidance_torch.harness import paths
 
-    cfg, pool, policy_id = main_path_config()
+    path = paths.serving_path("main", "cpu")
     E = 256
-    state = autoreset.state_from_case(cfg, pool[np.arange(E) % len(pool)], policy_id,
-                                      device="cpu")
+    state = autoreset.state_from_case(path.cfg, paths.one_case_per_env(E, A_MAIN),
+                                      path.policy_id, device="cpu")
     for _ in range(15):
-        state = env_step(state, None, cfg)[0]
-    cpu = env_step(state, None, cfg)
-    card = env_step(state.to(DEVICE), None, cfg)
+        state = path.step(state)[0]
+    cpu = path.step(state)
+    card = path.step(state.to(DEVICE))
     torch.cuda.synchronize()
-    worst, _ = compare_steps("card_vs_cpu", cpu, card, 1e-5, 1e-6)
+    worst = compare_steps("card_vs_cpu", cpu, card, 1e-5, 1e-6)[0]
     check(bool(cpu[0].in_collision.any()) and bool(cpu[0].is_at_goal.any()),
           "the compared step should hold collisions and arrivals")
-    print(json.dumps({"card_vs_cpu": {"envs": E, "max_abs_err": worst,
+    print(json.dumps({"card_vs_cpu": {"envs": E, "distinct_cases": E, "max_abs_err": worst,
                                       "discrete_equal": True}}), flush=True)
 
 
-def mid_episode_states(cfg, pool, policy_id, params, num_envs, steps):
-    """States ``steps`` auto-reset steps into the serving loop, on the card."""
-    from gym_collision_avoidance_torch.env import autoreset
+def mid_episode(name, steps):
+    """``name``'s path on the card and ``steps`` auto-reset steps into its
+    loop at its full width, each env started on its own pool case; the
+    states, their CPU copy, the path's CPU copy and the count of distinct
+    pool cases the envs are on."""
+    from gym_collision_avoidance_torch.harness import paths
 
-    step = autoreset.make_autoreset_step(cfg, pool, policy_id, (int(policy_id[0]),),
-                                         params=params, device=DEVICE)
-    state = autoreset.state_from_case(cfg, pool[np.arange(num_envs) % len(pool)], policy_id,
-                                      device=DEVICE)
-    counter = torch.arange(num_envs, dtype=torch.int32, device=DEVICE)
-    for _ in range(steps):
-        state, counter = step(state, counter)[:2]
-    return state
+    path = serving_path(name)
+    state, cases = paths.mid_episode_states(path, path.num_envs, steps, DEVICE)
+    return path, state, path.to("cpu"), state.to("cpu"), cases
 
 
-def phase_policy_card_vs_cpu():
-    """One env_step of ga3c4 (E = 4096) and of orca4 (E = 16384) on the card
-    and on the CPU from the same mid-episode float32 states.
-
-    GA3C: the action indices agree on at least 99.99% of agents, and every
-    mismatch sits where the CPU's top two probs differ by less than 1e-5
-    (cuBLAS sums in another order than the CPU, and sigmoid, tanh and
-    softmax differ by ulps).  ORCA: velocities within rtol 1e-4 /
-    atol 1e-5.  The step's other outputs are held as ``phase_card_vs_cpu``
-    holds them, on the envs whose agents all agree on their action index or
-    LP branch, with the slack of :func:`goal_frame_slack` on the outputs in
-    an agent's goal frame."""
-    from gym_collision_avoidance_torch import env_step
-    from gym_collision_avoidance_torch.core.device import params_to_device
-    from gym_collision_avoidance_torch.ops import orca
-    from gym_collision_avoidance_torch.policies import ga3c, registry, rvo
-
-    result = {}
-    cfg, pool, pid, params = ga3c4_config()
-    state = mid_episode_states(cfg, pool, pid, params, E_GA3C4, 15)
-    cpu_state, cpu_params = state.to("cpu"), params_to_device(params, "cpu")
-    want = ga3c.ga3c_cadrl_probs(cpu_state, cpu_params)
-    got = ga3c.ga3c_cadrl_probs(state, params).cpu()
+def argmax_agreement(name, want, got, eps, same=None):
+    """The argmax of ``want`` (CPU) and ``got`` (card), ``[N, K]`` scores:
+    equal on at least 99.99% of rows, and every mismatch where the CPU's
+    top two differ by less than ``eps``.  ``same`` (``[N, K, K]`` bool,
+    optional) marks pairs of choices that are the same action; a row whose
+    two argmaxes are such a pair agrees.  Returns the ``[N]`` agreement and
+    the numbers to print."""
     idx_cpu, idx_card = want.argmax(-1), got.argmax(-1)
     differ = idx_cpu != idx_card
+    out = {}
+    if same is not None:
+        rows = torch.arange(len(idx_cpu))
+        twin = differ & same[rows, idx_cpu, idx_card]
+        out["index_mismatches_on_the_same_action"] = int(twin.sum())
+        differ = differ & ~twin
     top2 = torch.topk(want, 2, dim=-1).values
     margin = (top2[:, 0] - top2[:, 1])[differ]
     check(float(differ.double().mean()) <= 1e-4,
-          f"GA3C: {int(differ.sum())} of {differ.numel()} action indices differ")
+          f"{name}: {int(differ.sum())} of {differ.numel()} action indices differ")
     largest = float(margin.max()) if len(margin) else None
-    check(largest is None or largest < 1e-5, f"GA3C: a mismatch with a CPU margin of {largest}")
-    agree = ~differ.reshape(E_GA3C4, A_MAIN).any(dim=-1)
-    cpu = env_step(cpu_state, None, cfg, cpu_params, (registry.GA3C_CADRL,))
-    card = env_step(state, None, cfg, params, (registry.GA3C_CADRL,))
-    torch.cuda.synchronize()
-    result["ga3c4"] = {
-        "envs": E_GA3C4, "agents": differ.numel(), "action_index_mismatches": int(differ.sum()),
-        "largest_mismatch_margin": largest,
-        "max_prob_diff": float((got - want).abs().max()),
-        **held_with_frame_slack("ga3c4", cpu, card, agree)}
+    check(largest is None or largest < eps, f"{name}: a mismatch with a CPU margin of {largest}")
+    return ~differ, {"agents": differ.numel(), "action_index_mismatches": int(differ.sum()),
+                     **out, "largest_mismatch_margin": largest}
 
-    cfg, pool, pid, _ = orca4_config()
-    state = mid_episode_states(cfg, pool, pid, None, E_ORCA4, 12)
-    cpu_state = state.to("cpu")
-    vel, branch = orca.orca_solve(*rvo.orca_inputs(state, cfg, None))
-    want_vel, want_branch = orca.orca_solve(*rvo.orca_inputs(cpu_state, cfg, None))
+
+def orca_agreement(state, cfg, cpu_state, params=None):
+    """ORCA velocities of the card and the CPU on the same states, within
+    rtol 1e-4 / atol 1e-5; the ``[E, A]`` LP-branch agreement and the
+    numbers to print."""
+    from gym_collision_avoidance_torch.ops import orca
+    from gym_collision_avoidance_torch.policies import rvo
+
+    vel, branch = orca.orca_solve(*rvo.orca_inputs(state, cfg, params))
+    want_vel, want_branch = orca.orca_solve(*rvo.orca_inputs(cpu_state, cfg, params))
     vel, branch = vel.cpu(), branch.cpu()
     check(torch.allclose(vel, want_vel, rtol=1e-4, atol=1e-5),
           f"ORCA velocities differ by up to {max_abs_err(vel, want_vel)}")
-    agree = (branch == want_branch).all(dim=-1)
-    cpu = env_step(cpu_state, None, cfg, None, (registry.RVO,))
-    card = env_step(state, None, cfg, None, (registry.RVO,))
-    torch.cuda.synchronize()
-    result["orca4"] = {
-        "envs": E_ORCA4, "max_velocity_diff": max_abs_err(vel, want_vel),
+    A = vel.shape[-2]
+    return branch == want_branch, {
+        "max_velocity_diff": max_abs_err(vel, want_vel),
         "velocities_bitwise_equal": bitwise_equal(vel, want_vel),
         "lp_branch_differs": int((branch != want_branch).sum()),
-        "agents_in_lp3": int((want_branch < A_MAIN - 1).sum()),
-        **held_with_frame_slack("orca4", cpu, card, agree), **orca_times(state, cfg)}
+        "agents_in_lp3": int((want_branch < A - 1).sum())}
+
+
+def compare_ga3c4():
+    """ga3c4 (E = 4096): GA3C action indices and the step."""
+    from gym_collision_avoidance_torch.policies import ga3c
+
+    path, state, cpu_path, cpu_state, cases = mid_episode("ga3c4", 15)
+    E, A = state.pos.shape[:2]
+    want = ga3c.ga3c_cadrl_probs(cpu_state, cpu_path.params)
+    got = ga3c.ga3c_cadrl_probs(state, path.params).cpu()
+    agree, line = argmax_agreement("GA3C", want, got, 1e-5)
+    cpu, card = cpu_path.step(cpu_state), path.step(state)
+    torch.cuda.synchronize()
+    return {"envs": E, "distinct_cases": cases, **line,
+            "max_prob_diff": float((got - want).abs().max()),
+            **held_with_frame_slack("ga3c4", cpu, card, agree.reshape(E, A).all(dim=-1))}
+
+
+def compare_orca4():
+    """orca4 (E = 16384): ORCA velocities, LP branches, the step and the
+    solve's times."""
+    path, state, cpu_path, cpu_state, cases = mid_episode("orca4", 12)
+    agree, line = orca_agreement(state, path.cfg, cpu_state)
+    cpu, card = cpu_path.step(cpu_state), path.step(state)
+    torch.cuda.synchronize()
+    return {"envs": path.num_envs, "distinct_cases": cases, **line,
+            **held_with_frame_slack("orca4", cpu, card, agree.all(dim=-1)),
+            **orca_times(state, path.cfg)}
+
+
+def compare_cadrl4():
+    """cadrl4's configuration (E = 4096, one case per env): SA-CADRL's
+    candidate values and action indices, and the step.  A candidate whose
+    encoded heading (relative to its goal) lies within 1e-4 of +-pi is not
+    held to the value tolerance: the reference's wrap puts it at either end
+    of the range by an ulp, and the net reads +pi and -pi apart; those
+    candidates are counted.  Two argmaxes that pick the same action (speed
+    and heading within 1e-6, as candidates 0 and 1 are for an agent heading
+    straight to its goal at its preferred speed) agree, and are counted."""
+    from gym_collision_avoidance_torch.models.cadrl import forward_raw
+    from gym_collision_avoidance_torch.policies import cadrl
+
+    path, state, cpu_path, cpu_state, cases = mid_episode("cadrl4", 15)
+    E, A = state.pos.shape[:2]
+    cfg = path.cfg
+    nn_cpu, aux_cpu = cadrl._cadrl_prepare(cpu_state, cfg)
+    nn_card, aux_card = cadrl._cadrl_prepare(state, cfg)
+    want = cadrl._cadrl_values(aux_cpu, forward_raw(cpu_path.params["cadrl"], nn_cpu))
+    got = cadrl._cadrl_values(aux_card, forward_raw(path.params["cadrl"], nn_card)).cpu()
+    at_wrap = nn_cpu[..., 3].abs() > math.pi - 1e-4
+    value_diff = max_abs_err(got[~at_wrap], want[~at_wrap])
+    check(value_diff <= 1e-4, f"SA-CADRL: candidate values differ by up to {value_diff}")
+    # candidates that are one action: "keep going" (0) is "straight to the
+    # goal at the preferred speed" (1) for an agent already doing that
+    speed, heading = aux_cpu["action_speed"], aux_cpu["action_heading"]
+    dh = torch.remainder(heading[..., :, None] - heading[..., None, :] + math.pi,
+                         2 * math.pi) - math.pi
+    same = ((speed[..., :, None] - speed[..., None, :]).abs() < 1e-6) & (dh.abs() < 1e-6)
+    agree, line = argmax_agreement("SA-CADRL", want.flatten(0, 1), got.flatten(0, 1), 1e-5,
+                                   same.flatten(0, 1))
+    cpu, card = cpu_path.step(cpu_state), path.step(state)
+    torch.cuda.synchronize()
+    return {"envs": E, "distinct_cases": cases, **line, "max_value_diff": value_diff,
+            "candidates": want.numel(), "candidates_at_heading_wrap": int(at_wrap.sum()),
+            "max_value_diff_at_heading_wrap": max_abs_err(got[at_wrap], want[at_wrap]),
+            **held_with_frame_slack("cadrl4", cpu, card, agree.reshape(E, A).all(dim=-1))}
+
+
+def compare_drl2():
+    """drl2's configuration (E = 4096, one case per env): K2 bitwise against
+    its plain version on the card at the step's full width, DRL-Long's
+    actions, its RVO agent's ORCA velocities, and the step on the first
+    ``E_DRL2_STEP`` envs (the CPU's full pass is K2's brute-force plain
+    version)."""
+    from gym_collision_avoidance_torch.ops import raymarch
+    from gym_collision_avoidance_torch.policies import drl_long
+
+    path, state, cpu_path, cpu_state, cases = mid_episode("drl2", 15)
+    calls, outs = [], []
+    with capture(raymarch, "raymarch_cuda", calls, outs):
+        path.step(state)
+    torch.cuda.synchronize()
+    check(len(calls) == 1, f"drl2: the step launched K2 {len(calls)} times, not once")
+    ref = raymarch.raymarch_plain(*calls[0])
+    check(bitwise_equal(outs[0], ref), "drl2: K2 not bitwise equal to the plain version")
+    hits = int((ref < raymarch.LASER_MAX_RANGE).sum())
+    check(hits > 0, "drl2: no beam hit anything")
+    k2 = {"k2_bitwise_equal": True, "k2_shape": list(ref.shape), "k2_beams_hit": hits}
+    del calls, outs, ref
+    want = drl_long.drl_long_kernel(cpu_state, path.cfg, cpu_path.params)
+    got = drl_long.drl_long_kernel(state, path.cfg, path.params).cpu()
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+          f"DRL-Long: actions differ by up to {max_abs_err(got, want)}")
+    agree, line = orca_agreement(state, path.cfg, cpu_state)
+    n = E_DRL2_STEP
+    cpu = cpu_path.step(cpu_state.map(lambda x: x[:n]))
+    card = path.step(state.map(lambda x: x[:n]))
+    torch.cuda.synchronize()
+    return {"envs": path.num_envs, "distinct_cases": cases, **k2,
+            "max_action_diff": max_abs_err(got, want),
+            **line, **held_with_frame_slack("drl2", cpu, card, agree[:n].all(dim=-1))}
+
+
+def phase_policy_card_vs_cpu():
+    """One env_step of ga3c4 (E = 4096), orca4 (E = 16384), cadrl4 (E = 4096)
+    and drl2 (E = 4096) on the card and on the CPU from the same mid-episode
+    float32 states, each env started on its own pool case.
+
+    GA3C and SA-CADRL: the action indices agree on at least 99.99% of
+    agents (for SA-CADRL, indices of candidates that are the same action
+    agree), and every mismatch sits where the CPU's top two probs (GA3C) or
+    candidate values (SA-CADRL) differ by less than 1e-5 (cuBLAS sums in
+    another order than the CPU, and the transcendentals differ by ulps);
+    SA-CADRL's candidate values within atol 1e-4 away from the +-pi wrap of
+    the encoded heading (:func:`compare_cadrl4`).  DRL-Long: the actions
+    within rtol 1e-5 / atol 1e-5 (cuDNN against oneDNN).  ORCA: velocities
+    within rtol 1e-4 / atol 1e-5, and whether they are bitwise equal.  The
+    step's other outputs (on drl2's first 64 envs) are held as
+    ``phase_card_vs_cpu`` holds them, on the envs whose agents all agree on
+    their action index or LP branch, with the slack of
+    :func:`goal_frame_slack` on the outputs in an agent's goal frame."""
+    result = {"ga3c4": compare_ga3c4(), "orca4": compare_orca4(),
+              "cadrl4": compare_cadrl4(), "drl2": compare_drl2()}
     print(json.dumps({"policy_card_vs_cpu": result}), flush=True)
+
+
+def phase_networks():
+    """Device time of SA-CADRL's value net on cadrl4's ``[E, A, 47, 31]``
+    batch and of DRL-Long's CNN on drl2's 8192 rows (CUDA graphs of the
+    calls, TF32 off) beside their float32 FLOP bounds at 67 TFLOP/s: the
+    products' multiply-adds, 2 FLOP each."""
+    from gym_collision_avoidance_torch.models import cadrl, drl_long
+
+    cadrl4, drl2 = serving_path("cadrl4"), serving_path("drl2")
+    rng = np.random.RandomState(3)
+    net = cadrl4.params["cadrl"]
+    x = torch.as_tensor(rng.randn(cadrl4.num_envs, len(cadrl4.policy_id), 47, 31),
+                        dtype=torch.float32, device=DEVICE)
+    rows = x.numel() // 31
+    flop = 2.0 * rows * sum(w.numel() for w in (net.W0, net.W1, net.W3, net.W4))
+    with torch.no_grad():
+        value_ms = graph_ms(lambda: cadrl.forward_raw(net, x), inner=3)
+    cnn = drl2.params["drl_long"]
+    B = drl2.num_envs * len(drl2.policy_id)
+    scan = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, 3, 512)), dtype=torch.float32,
+                           device=DEVICE)
+    goal = torch.as_tensor(rng.uniform(-4, 4, (B, 2)), dtype=torch.float32, device=DEVICE)
+    speed = torch.as_tensor(rng.uniform(-1, 1, (B, 2)), dtype=torch.float32, device=DEVICE)
+    L1, L2 = 255, 128
+    macs = (32 * L1 * 3 * 5 + 32 * L2 * 32 * 3 + cnn.fc1.weight.numel() + cnn.fc2.weight.numel()
+            + 2 * 128)
+    with torch.no_grad():
+        cnn_ms = graph_ms(lambda: drl_long.forward(cnn, scan, goal, speed), inner=5)
+    out = {"cadrl_value_net": {"rows": rows, "gflop": flop / 1e9, "ms": value_ms,
+                               "bound_ms": flop / F32_FLOPS * 1e3},
+           "drl_long_cnn": {"rows": B, "gflop": 2.0 * macs * B / 1e9, "ms": cnn_ms,
+                            "bound_ms": 2.0 * macs * B / F32_FLOPS * 1e3}}
+    print(json.dumps({"networks": out}), flush=True)
 
 
 # ---------------------------------------------------------------- laser path
 
 @contextlib.contextmanager
-def capture(module, name, calls):
-    """Record the arguments of every call of ``module.name``."""
+def capture(module, name, calls, outs=None):
+    """Record the arguments of every call of ``module.name`` in ``calls``,
+    and its results in ``outs`` if given."""
     orig = getattr(module, name)
 
     def spy(*args):
         calls.append(args)
-        return orig(*args)
+        out = orig(*args)
+        if outs is not None:
+            outs.append(out)
+        return out
 
     setattr(module, name, spy)
     try:
@@ -493,38 +689,6 @@ def bitwise_equal(a, b):
     itype = torch.int32 if a.dtype == torch.float32 else torch.int64
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(itype),
                                                                      b.view(itype))
-
-
-def laser_config(fast, dtype="float32", **overrides):
-    """``scripts/bench_all.py:bench_ga3c20_laser``'s EnvConfig; ``fast=False``
-    drops its wedge, window and beam slots (the full pass, K2)."""
-    from gym_collision_avoidance_torch import EnvConfig
-
-    kw = dict(dtype=dtype, max_num_other_agents_observed=19,
-              agent_sorting_method="closest_last", use_static_map=True,
-              map_x_width=20.0, map_y_width=20.0, laserscan_length=L_LASER)
-    if fast:
-        kw.update(laserscan_num_candidate_discs=9, laserscan_entry_window=12,
-                  laserscan_beam_slots=4)
-    kw.update(overrides)
-    return EnvConfig(**kw)
-
-
-def laser_pool():
-    """The one-case pool: ``circle_scenario(20, radius=8.0, agent_radius=0.3)``."""
-    from gym_collision_avoidance_torch.scenarios import presets
-
-    sc = presets.circle_scenario(A_LASER, radius=8.0, agent_radius=0.3)
-    rows = np.concatenate([sc.pos, sc.goal, sc.pref_speed[:, None], sc.radius[:, None]], -1)
-    return rows[None]
-
-
-def static_inputs(cfg, map_name=None, pad=0):
-    from gym_collision_avoidance_torch.maps import grid
-
-    static = grid.load_static_map(cfg, None if map_name is None else grid.world_map_path(map_name))
-    cells = grid.occupied_cell_list(static, int(static.sum()) + pad)
-    return (torch.as_tensor(static, device=DEVICE), torch.as_tensor(cells, device=DEVICE))
 
 
 def laser_states(cfg, E, seed, device, A=A_LASER, odd=False):
@@ -597,6 +761,7 @@ def phase_k2():
     """K2 against its plain version, bitwise, on the card: the laser path's
     cases and the band model's edge cases, in float32 and float64; timed at
     the laser path's full width on the empty map and on map 002."""
+    from gym_collision_avoidance_torch.harness import paths
     from gym_collision_avoidance_torch.obs import sensors
     from gym_collision_avoidance_torch.ops import raymarch
 
@@ -616,15 +781,15 @@ def phase_k2():
               f"{hits} of {ref.numel()} beams hit", flush=True)
         return calls[0], out, max_abs_err(out, ref)
 
-    cfg = laser_config(False)
+    cfg = paths.laser_config(False)
     cases = [("f32 full width, empty map", cfg, E_LASER, None, False),
              ("f32, map 002 (84 cells + 16 padding rows)", cfg, 32, "002", False),
-             ("f64", laser_config(False, "float64"), 8, None, False),
+             ("f64", paths.laser_config(False, "float64"), 8, None, False),
              ("f32, E*A = 35, invalid and off-map agents", cfg, 7, "002", True),
-             ("f64, map 002", laser_config(False, "float64"), 8, "002", False)]
+             ("f64, map 002", paths.laser_config(False, "float64"), 8, "002", False)]
     worst, timed = 0.0, {}
     for i, (name, c, E, map_name, odd) in enumerate(cases):
-        _static, cells = static_inputs(c, map_name, pad=16 if map_name else 0)
+        _static, cells = paths.map_inputs(c, DEVICE, map_name, pad=16 if map_name else 0)
         state = laser_states(c, E, 10 + i, DEVICE, A=5 if odd else A_LASER, odd=odd)
         args, out, err = held(name, c, state, cells)
         worst = max(worst, err)
@@ -634,7 +799,7 @@ def phase_k2():
             c, state, cells = band.build_case(name, dtype, DEVICE)
             worst = max(worst, held(f"{dtype[5:]}-bit band case {name}", c, state, cells)[2])
     # full width on map 002, for the per-source screen's share
-    _static, cells = static_inputs(cfg, "002", pad=16)
+    _static, cells = paths.map_inputs(cfg, DEVICE, "002", pad=16)
     args, out, _err = held("f32 full width, map 002", cfg,
                            laser_states(cfg, E_LASER, 15, DEVICE), cells)
     timed["map_002"] = (args, out)
@@ -691,6 +856,7 @@ def phase_k3():
     the card: the fast route's cases and the band model's edge cases, in
     float32 and float64; timed at the fast route's full width on the empty
     map, on map 002 and on the route without wedge culling (B = 1)."""
+    from gym_collision_avoidance_torch.harness import paths
     from gym_collision_avoidance_torch.obs import sensors
     from gym_collision_avoidance_torch.ops import laser_fused
 
@@ -714,16 +880,16 @@ def phase_k3():
               f"{int(ref_ovf.sum())} beams overflow their slots", flush=True)
         return calls[0], out, max_abs_err(out, ref), int(ref_ovf.sum())
 
-    cfg = laser_config(True)
+    cfg = paths.laser_config(True)
     cases = [("f32 full width, empty map", cfg, E_LASER, None, False),
-             ("f32, Cs = 1 (slots overflow)", laser_config(True, laserscan_beam_slots=1),
+             ("f32, Cs = 1 (slots overflow)", paths.laser_config(True, laserscan_beam_slots=1),
               32, None, False),
              ("f32, map 002 cells", cfg, 32, "002", False),
-             ("f64", laser_config(True, "float64"), 8, None, False),
+             ("f64", paths.laser_config(True, "float64"), 8, None, False),
              ("f32, invalid and off-map agents", cfg, 7, "002", True)]
     worst, timed = 0.0, {}
     for i, (name, c, E, map_name, odd) in enumerate(cases):
-        _static, cells = static_inputs(c, map_name, pad=16 if map_name else 0)
+        _static, cells = paths.map_inputs(c, DEVICE, map_name, pad=16 if map_name else 0)
         args, out, err, overflowed = held(name, c, laser_states(c, E, 20 + i, DEVICE, odd=odd),
                                           cells)
         worst = max(worst, err)
@@ -736,12 +902,12 @@ def phase_k3():
             worst = max(worst, held(f"{dtype[5:]}-bit band case {name}", c, state, cells)[2])
     # full width on map 002 (9 candidates + 84 cells + 16 padding rows a
     # block), and on the route without wedge culling (B = 1, S = A)
-    _static, cells = static_inputs(cfg, "002", pad=16)
+    _static, cells = paths.map_inputs(cfg, DEVICE, "002", pad=16)
     args, out, _err, _ovf = held("f32 full width, map 002", cfg,
                                  laser_states(cfg, E_LASER, 25, DEVICE), cells)
     timed["map_002"] = (args, out)
-    b1 = laser_config(True, laserscan_num_candidate_discs=None)
-    _static, cells = static_inputs(b1)
+    b1 = paths.laser_config(True, laserscan_num_candidate_discs=None)
+    _static, cells = paths.map_inputs(b1, DEVICE)
     args, out, _err, _ovf = held("f32 full width, B = 1", b1,
                                  laser_states(b1, E_LASER, 26, DEVICE), cells)
     timed["b1"] = (args, out)
@@ -767,82 +933,18 @@ def phase_k3():
             "ms_b1": res["b1"]["ms"], "bound_ms_b1": res["b1"]["bound_ms"]}
 
 
-def laser_policy():
-    """GA3C-CADRL agents with the iros18 weights, as ``bench_ga3c20_laser``
-    runs them (19 LSTM steps for 20 agents)."""
-    from gym_collision_avoidance_torch.models import ga3c_cadrl
-    from gym_collision_avoidance_torch.policies import registry
-
-    return (np.full(A_LASER, registry.GA3C_CADRL, np.int32),
-            {"ga3c_cadrl": ga3c_cadrl.load_params(device=DEVICE)})
-
-
-def phase_laser_serving(fast, kernels):
-    """Drive AutoresetServer on the laser path: the counts go to 0 after
-    construction, and K1 and the route's laser kernel must launch once per
-    step."""
-    from gym_collision_avoidance_torch.harness.serving import AutoresetServer
-
-    cfg = laser_config(fast)
-    static, cells = static_inputs(cfg)
-    pid, params = laser_policy()
-    server = AutoresetServer(cfg, laser_pool(), pid, params=params,
-                             num_envs=E_LASER, steps_per_dispatch=LASER_STEPS,
-                             sensors=("other_agents_states", "laserscan"),
-                             states_in_obs=("num_other_agents", "dist_to_goal",
-                                            "heading_ego_frame", "pref_speed", "radius",
-                                            "other_agents_states", "laserscan"),
-                             static_map=static, static_cells=cells, device=DEVICE)
-    torch.cuda.synchronize()
-    for k in kernels.values():
-        k.LAUNCHES = 0
-    server.dispatch()                                   # warm-up dispatch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(LASER_DISPATCHES):
-        out = server.dispatch()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {n: k.LAUNCHES for n, k in kernels.items()}
-    steps = (LASER_DISPATCHES + 1) * LASER_STEPS
-    laser = "laser_fused" if fast else "raymarch"
-    idle = "raymarch" if fast else "laser_fused"
-    check(launches["pairwise"] == steps, f"K1 launched {launches['pairwise']} in {steps} steps")
-    check(launches[laser] == steps, f"{laser} launched {launches[laser]} in {steps} steps")
-    check(launches[idle] == 0, f"{idle} launched {launches[idle]} times")
-    for name, leaf in server.states().items():
-        if leaf.is_floating_point():
-            check(bool(torch.isfinite(leaf).all()), f"non-finite state leaf {name}")
-    check(bool(torch.isfinite(out["mean_reward"]).all()), "non-finite reward")
-    episodes = server.episodes_completed()
-    check(episodes > 0, "no episode completed")
-    timed = LASER_DISPATCHES * LASER_STEPS
-    line = {"num_envs": E_LASER, "agents": A_LASER, "beams": L_LASER, "steps": steps,
-            "timed_steps": timed, "seconds": seconds,
-            "env_steps_per_s": timed * E_LASER / seconds, "ms_per_step": 1e3 * seconds / timed,
-            "episodes_completed": episodes, "launches": launches}
-    if fast:
-        line["exactness_overflow"] = server.exactness_overflow()
-        line["steps_with_overflow"] = int(out["exactness_overflow"].sum())
-    print(json.dumps({"laser_serving_fast" if fast else "laser_serving_full": line}),
-          flush=True)
-    return launches, server.states()
-
-
 def phase_fast_vs_full(states):
     """Continue the full pass's trajectory for 64 steps; on every 8th step's
     states the fast route's ranges equal the full pass's bitwise wherever
     its guard is quiet."""
     from gym_collision_avoidance_torch.env import autoreset
+    from gym_collision_avoidance_torch.harness import paths
     from gym_collision_avoidance_torch.obs import sensors
-    from gym_collision_avoidance_torch.policies import registry
 
-    full, fast = laser_config(False), laser_config(True)
-    static, cells = static_inputs(full)
-    pid, params = laser_policy()
-    step = autoreset.make_autoreset_step(full, laser_pool(), pid, (registry.GA3C_CADRL,),
-                                         ("other_agents_states", "laserscan"), params=params,
-                                         device=DEVICE, static_map=static, static_cells=cells)
+    path = serving_path("laser_full")
+    full, fast, cells = path.cfg, paths.laser_config(True), path.static_cells
+    step = autoreset.make_autoreset_step(full, path.pool, path.policy_id, path.active,
+                                         params=path.params, device=DEVICE, **path.world)
     counter = torch.arange(E_LASER, dtype=torch.int32, device=DEVICE)
     tripped = compared = beams = 0
     for t in range(1, 65):
@@ -865,47 +967,32 @@ def phase_fast_vs_full(states):
 
 def phase_laser_card_vs_cpu():
     """One laser env_step (map 002, E = 16) on the card and on the CPU from
-    the same states: discrete outputs equal, floats to rtol 1e-5 /
-    atol 1e-6, laserscan ranges equal on at least 99.99% of the entries
-    (float32 sin/cos differ by ulps between the devices)."""
+    the same states, held by :func:`compare_steps`: discrete outputs equal,
+    floats to rtol 1e-5 / atol 1e-6, laserscan ranges equal on at least
+    99.99% of the entries (float32 sin/cos differ by ulps between the
+    devices)."""
     from gym_collision_avoidance_torch import env_step
+    from gym_collision_avoidance_torch.harness import paths
     from gym_collision_avoidance_torch.policies import registry
 
     E = 16
-    sensors = ("other_agents_states", "laserscan")
     obs_keys = ("dist_to_goal", "radius", "other_agents_states", "laserscan")
     result = {}
     for fast in (False, True):
-        cfg = laser_config(fast)
-        static, cells = static_inputs(cfg, "002")
-        cpu_args = (static.cpu(), cells.cpu())
+        cfg = paths.laser_config(fast)
+        static, cells = paths.map_inputs(cfg, DEVICE, "002")
+
+        def step(state, static=static, cells=cells):
+            return env_step(state, None, cfg, None, (registry.NONCOOP,), paths.LASER_SENSORS,
+                            obs_keys, static.to(state.pos.device), cells.to(state.pos.device))
+
         state = laser_states(cfg, E, 31, "cpu")
         for _ in range(3):
-            state = env_step(state, None, cfg, None, (registry.NONCOOP,), sensors, obs_keys,
-                             *cpu_args)[0]
-        cpu = env_step(state, None, cfg, None, (registry.NONCOOP,), sensors, obs_keys,
-                       *cpu_args)
-        card = env_step(state.to(DEVICE), None, cfg, None, (registry.NONCOOP,), sensors,
-                        obs_keys, static, cells)
+            state = step(state)[0]
+        cpu, card = step(state), step(state.to(DEVICE))
         torch.cuda.synchronize()
-        pairs = [(f"state.{k}", v, getattr(card[0], k)) for k, v in cpu[0].items()]
-        pairs += [(f"obs.{k}", v, card[1][k]) for k, v in cpu[1].items()]
-        pairs += [("rewards", cpu[2], card[2]), ("game_over", cpu[3], card[3])]
-        pairs += [(f"info.{k}", v, card[4][k]) for k, v in cpu[4].items()]
-        worst, laser_diff, laser_n = 0.0, 0, 0
-        for name, want, got in pairs:
-            got = got.cpu()
-            check(got.shape == want.shape and got.dtype == want.dtype, f"{name} shape/dtype")
-            if name in ("state.laserscan_history", "obs.laserscan"):
-                laser_diff += int((got != want).sum())
-                laser_n += want.numel()
-            elif want.is_floating_point():
-                check(torch.allclose(got, want, rtol=1e-5, atol=1e-6, equal_nan=True),
-                      f"{name} differs beyond rtol 1e-5 / atol 1e-6")
-                worst = max(worst, max_abs_err(got, want))
-            else:
-                check(torch.equal(got, want), f"{name} differs")
-        check(laser_diff <= 1e-4 * laser_n, f"laserscan: {laser_diff} of {laser_n} differ")
+        name = "laser_card_vs_cpu_" + ("fast" if fast else "full")
+        worst, _, laser_diff, laser_n = compare_steps(name, cpu, card, 1e-5, 1e-6)
         check(bool(cpu[0].in_collision.any()), "the compared step should hold collisions")
         result["fast" if fast else "full"] = {
             "envs": E, "max_abs_err": worst, "laser_entries_differing": laser_diff,
@@ -932,24 +1019,30 @@ def main():
     k3 = phase_k3()
     for k in (k2, k3):
         k["launch_floor_ms"] = k1["launch_floor_ms"]
-    k1_paths = {}
-    k1_paths["main"], _ = phase_serving("serving", kernels, *main_path_config(), None, E_MAIN)
-    k1_paths["ga3c4"], _ = phase_serving("ga3c4_serving", kernels, *ga3c4_config(), E_GA3C4)
-    k1_paths["orca4"], _ = phase_serving("orca4_serving", kernels, *orca4_config(), E_ORCA4)
+    by_path = {}
+    for name, label in (("main", "serving"), ("ga3c4", "ga3c4_serving"),
+                        ("orca4", "orca4_serving")):
+        by_path[name], _ = phase_serving(label, kernels, serving_path(name))
+    for name in ("cadrl4", "drl2"):
+        by_path[name], _ = phase_serving(f"{name}_serving", kernels, serving_path(name),
+                                         laser="raymarch" if name == "drl2" else None,
+                                         steps=POLICY_STEPS, dispatches=POLICY_DISPATCHES)
     phase_card_vs_cpu()
     phase_policy_card_vs_cpu()
-    full, states = phase_laser_serving(False, kernels)
-    fast, _ = phase_laser_serving(True, kernels)
+    phase_networks()
+    by_path["laser_full"], states = phase_serving("laser_serving_full", kernels,
+                                                  serving_path("laser_full"), "raymarch",
+                                                  LASER_STEPS, LASER_DISPATCHES)
+    by_path["laser_fast"], _ = phase_serving("laser_serving_fast", kernels,
+                                             serving_path("laser_fast"), "laser_fused",
+                                             LASER_STEPS, LASER_DISPATCHES)
     phase_fast_vs_full(states)
     phase_laser_card_vs_cpu()
 
-    k1_paths.update(laser_full=full["pairwise"], laser_fast=fast["pairwise"])
-    k1["launches"], k1["launches_by_path"] = k1_paths["main"], k1_paths
-    k2["launches"] = full["raymarch"]
-    k2["launches_by_path"] = {"laser_full": full["raymarch"], "laser_fast": fast["raymarch"]}
-    k3["launches"] = fast["laser_fused"]
-    k3["launches_by_path"] = {"laser_full": full["laser_fused"],
-                              "laser_fast": fast["laser_fused"]}
+    for k, name, main_path in ((k1, "pairwise", "main"), (k2, "raymarch", "laser_full"),
+                               (k3, "laser_fused", "laser_fast")):
+        k["launches"] = by_path[main_path][name]
+        k["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,9 +30,6 @@ class EnvConfig:
     """All static knobs of the simulation.
 
     Defaults mirror the reference base ``Config`` (``envs/config.py:29-86``).
-    The CADRL and RVO knobs are carried so that a config round-trips
-    between the two packages; the port raises ``NotImplementedError`` where
-    a run would need them (see ROADMAP.md).
     """
 
     # --- simulation (envs/config.py:44-47) ---

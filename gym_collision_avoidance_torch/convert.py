@@ -8,8 +8,10 @@ runs ``jax.device_get``, so this package never imports jax), and
 ways, the laser ones included (``laserscan_history`` ``[E, A, P, L]`` in
 the state's dtype, ``laserscan_count`` int32); the static map and its cell
 list are numpy arrays both packages take as they are.
-:func:`ga3c_params_from_numpy` builds the port's GA3C-CADRL module from the
-JAX package's parameter dict, so both packages run the same weights.
+:func:`ga3c_params_from_numpy`, :func:`cadrl_params_from_numpy` and
+:func:`drl_long_params_from_numpy` build the port's GA3C-CADRL, SA-CADRL and
+DRL-Long modules from the JAX package's parameter dicts, so both packages run
+the same weights.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import torch
 
 from gym_collision_avoidance_torch.core.device import resolve_device
 from gym_collision_avoidance_torch.core.state import EnvState
+from gym_collision_avoidance_torch.models.cadrl import CADRLValueNet
+from gym_collision_avoidance_torch.models.drl_long import DRLLongNet
 from gym_collision_avoidance_torch.models.ga3c_cadrl import GA3CCADRL
 
 _INT_LEAVES = ("step_num", "num_other_agents_observed", "laserscan_count",
@@ -57,3 +61,18 @@ def ga3c_params_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> GA3CCA
     The weights keep their dtype (float32, float64 or bfloat16) and the
     normalisation constants stay float32.  ``device=None`` means CUDA."""
     return GA3CCADRL(arrays).to(resolve_device(device))
+
+
+def cadrl_params_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> CADRLValueNet:
+    """The port's :class:`CADRLValueNet` from the JAX package's SA-CADRL
+    parameter dict as numpy arrays (``jax.device_get(load_params(...))``,
+    unpadded), in its dtype.  ``device=None`` means CUDA."""
+    return CADRLValueNet(arrays).to(resolve_device(device))
+
+
+def drl_long_params_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> DRLLongNet:
+    """The port's :class:`DRLLongNet` from the JAX package's DRL-Long
+    parameter dict as numpy arrays (``init_params``,
+    ``init_actor_critic_params`` or a loaded checkpoint), in its dtype.
+    ``device=None`` means CUDA."""
+    return DRLLongNet(arrays).to(resolve_device(device))

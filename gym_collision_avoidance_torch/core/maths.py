@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _TWO_PI = 2.0 * math.pi
@@ -34,9 +35,22 @@ def arctan2(y: torch.Tensor, x: torch.Tensor, exact: bool = False) -> torch.Tens
     return torch.atan2(y, x)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Square root rounded to nearest, as IEEE 754 defines it, on every
+    device: the package's one square root.  PyTorch's CUDA ``sqrt`` is
+    (``tests/test_torch_policies_cuda.py`` holds it bitwise to numpy's); its
+    CPU ``sqrt``, MKL's vector root, is an ulp off on some inputs
+    (``scripts/compare_devices.py`` finds it), so on the CPU a float32 or
+    float64 root is numpy's."""
+    if x.device.type != "cpu" or x.dtype not in (torch.float32, torch.float64):
+        return torch.sqrt(x)
+    a = x.detach().numpy()
+    return torch.from_numpy(np.sqrt(a, out=np.empty_like(a)))
+
+
 def l2norm(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """sqrt(dx^2 + dy^2), elementwise (envs/util.py:17-21)."""
-    return torch.sqrt(dx * dx + dy * dy)
+    return sqrt_rn(dx * dx + dy * dy)
 
 
 def norm2(vec: torch.Tensor) -> torch.Tensor:
@@ -60,6 +74,25 @@ def goal_frame_axes(pos: torch.Tensor, goal: torch.Tensor):
     return ref_prll, ref_orth, dist
 
 
+def filter_vel(dt: float, past_vel_xy: torch.Tensor) -> torch.Tensor:
+    """dt-weighted average of past velocities -> ``[..., 2]`` (speed, angle)
+    (``envs/util.py:124-131``), with every weight the constant ``dt``: the
+    JAX package's one caller, SA-CADRL (``policies/cadrl.py:543-544``),
+    closes over ``full((3, 2), cfg.dt)``.  As its compiled step computes it,
+    the weighted samples of ``past_vel_xy`` ``[..., K, 2]`` are summed from 0
+    in order, and the quotient by the constant ``K * dt`` is a product with
+    its reciprocal, both rounded to the dtype."""
+    np_dtype = np.float32 if past_vel_xy.dtype == torch.float32 else np.float64
+    w = np_dtype(dt)
+    denom = np_dtype(0.0)
+    total = torch.zeros_like(past_vel_xy[..., 0, :])
+    for k in range(past_vel_xy.shape[-2]):
+        denom = denom + w
+        total = total + float(w) * past_vel_xy[..., k, :]
+    avg = total * float(np_dtype(1.0) / denom)
+    return torch.stack([norm2(avg), torch.atan2(avg[..., 1], avg[..., 0])], dim=-1)
+
+
 def compute_time_to_impact(host_pos, other_pos, host_vel, other_vel, combined_radius):
     """Analytic time-to-collision via collision-cone tangents
     (``envs/util.py:23-112``), branch-free.  0 when already overlapping,
@@ -74,7 +107,7 @@ def compute_time_to_impact(host_pos, other_pos, host_vel, other_vel, combined_ra
     sq_dist_to_perimeter = den - r * r
     already_colliding = sq_dist_to_perimeter < 0
 
-    sqrt_term = torch.sqrt(torch.clamp(sq_dist_to_perimeter, min=0.0))
+    sqrt_term = sqrt_rn(torch.clamp(sq_dist_to_perimeter, min=0.0))
     safe_den = torch.clamp(den, min=1e-30)
     # Tangent points on the collision circle (envs/util.py:95-106).
     xnum1 = r * r * dx
@@ -105,8 +138,8 @@ def compute_time_to_impact(host_pos, other_pos, host_vel, other_vel, combined_ra
     t = slope * xp - (yp - b)
     C_g = a * a - r * r + t * t
     det_g = torch.clamp(B_g * B_g - 4 * A_g * C_g, min=0.0)
-    x1 = (-B_g + torch.sqrt(det_g)) / (2 * A_g)
-    x2 = (-B_g - torch.sqrt(det_g)) / (2 * A_g)
+    x1 = (-B_g + sqrt_rn(det_g)) / (2 * A_g)
+    x2 = (-B_g - sqrt_rn(det_g)) / (2 * A_g)
     y1 = slope * (x1 - xp) + yp
     y2 = slope * (x2 - xp) + yp
 
@@ -114,8 +147,8 @@ def compute_time_to_impact(host_pos, other_pos, host_vel, other_vel, combined_ra
     u = xp - a
     C_v = b * b + u * u - r * r
     det_v = torch.clamp(B_v * B_v - 4 * C_v, min=0.0)
-    yv1 = (-B_v + torch.sqrt(det_v)) / 2
-    yv2 = (-B_v - torch.sqrt(det_v)) / 2
+    yv1 = (-B_v + sqrt_rn(det_v)) / 2
+    yv2 = (-B_v - sqrt_rn(det_v)) / 2
 
     x1 = torch.where(vertical, xp, x1)
     x2 = torch.where(vertical, xp, x2)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from gym_collision_avoidance_torch.config import EnvConfig
+from gym_collision_avoidance_torch.core.maths import sqrt_rn
 
 WORLD_MAPS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "world_maps")
 
@@ -202,7 +203,7 @@ def _disc_row_spans(pos, radius, cfg: EnvConfig, shape):
     def inside(m):
         return (m * m + di2).to(dtype) < rsq
 
-    m = torch.floor(torch.sqrt(torch.clamp(rsq - di2.to(dtype), min=0.0))).to(torch.int32)
+    m = torch.floor(sqrt_rn(torch.clamp(rsq - di2.to(dtype), min=0.0))).to(torch.int32)
     m = torch.where(inside(m), m, m - 1)
     m = torch.where(inside(m + 1), m + 1, m)
     touched = inside(torch.zeros_like(m)) & in_map[..., None]

@@ -141,7 +141,7 @@ def _wedge_screen(state, cfg, pos_e, heading_e, ego_global, num_blocks):
 
     rel_x = state.pos[:, None, :, 0] - pos_e[:, :, None, 0]      # [E, Ae, A]
     rel_y = state.pos[:, None, :, 1] - pos_e[:, :, None, 1]
-    d = torch.sqrt(rel_x * rel_x + rel_y * rel_y)
+    d = maths.sqrt_rn(rel_x * rel_x + rel_y * rel_y)
     rhit = (state.radius * map_grid.reciprocal(cell, dtype) + 1.5) * cell  # [E, A]
     reach_ok = d <= r_max + rhit[:, None, :] + 1e-3
 
@@ -184,9 +184,9 @@ def _source_band(pos_e, cos_b, sin_b, rsq_d, cx_d, cy_d, cell):
     rely = cy_d - pos_e[:, :, None, None, 1]
     t_c = relx[..., None] * cos_b[:, :, :, None, :] + rely[..., None] * sin_b[:, :, :, None, :]
     bb = (relx * relx + rely * rely)[..., None] - t_c * t_c
-    r_out = (torch.sqrt(rsq_d) + _WINDOW_CELL_SLACK) * cell
+    r_out = (maths.sqrt_rn(rsq_d) + _WINDOW_CELL_SLACK) * cell
     disc = (r_out * r_out)[..., None] - bb
-    return t_c, bb, disc, torch.sqrt(torch.clamp(disc, min=0.0))
+    return t_c, bb, disc, maths.sqrt_rn(torch.clamp(disc, min=0.0))
 
 
 def _windowed_first_two_hits(pos_e, gi_e, gj_e, rsq_e, cos_b, sin_b,
@@ -213,9 +213,9 @@ def _windowed_first_two_hits(pos_e, gi_e, gj_e, rsq_e, cos_b, sin_b,
 
     # the span each (ego, source, beam) needs for exactness
     t_hi = t_c + half_o
-    r_in = torch.clamp(torch.sqrt(rsq_d) - _WINDOW_CELL_SLACK, min=0.0) * cell
+    r_in = torch.clamp(maths.sqrt_rn(rsq_d) - _WINDOW_CELL_SLACK, min=0.0) * cell
     inner = (r_in * r_in)[..., None] - bb
-    half_i = torch.sqrt(torch.clamp(inner, min=0.0))
+    half_i = maths.sqrt_rn(torch.clamp(inner, min=0.0))
     t_g = t_c - half_i
     covered2 = (inner > 0.0) & (t_g + res <= t_c + half_i)
     t_need = torch.where(covered2, t_g + res, t_hi)
@@ -265,9 +265,9 @@ def _windowed_beam_compacted(pos_e, gi_e, gj_e, rsq_e, cos_b, sin_b,
     res_half = float(np_dtype(res) / np_dtype(2.0))
     res_half_sq = float(np_dtype(res_half) * np_dtype(res_half))
 
-    r_out = (torch.sqrt(rsq_d) + _WINDOW_CELL_SLACK) * cell
-    r_in = torch.clamp(torch.sqrt(rsq_d) - _WINDOW_CELL_SLACK, min=0.0) * cell
-    dmax = 2.0 * torch.sqrt(torch.clamp(r_out * r_out - r_in * r_in, min=0.0) + res_half_sq)
+    r_out = (maths.sqrt_rn(rsq_d) + _WINDOW_CELL_SLACK) * cell
+    r_in = torch.clamp(maths.sqrt_rn(rsq_d) - _WINDOW_CELL_SLACK, min=0.0) * cell
+    dmax = 2.0 * maths.sqrt_rn(torch.clamp(r_out * r_out - r_in * r_in, min=0.0) + res_half_sq)
     span_bound = torch.floor((dmax + res_half) * inv_res).to(torch.int32) + 4
     span_overflow = ((rsq_d > 0) & span_ok & (span_bound > Wn)).flatten(1).any(dim=1)
 
@@ -447,9 +447,9 @@ def laserscan_window_span(state, cfg, static_cells=None, ego_idx=None) -> int:
 
     t_c, bb, disc, half_o = _source_band(pos_e, cos_b[:, :, None], sin_b[:, :, None],
                                          blocked(rsq), blocked(cx), blocked(cy), cell)
-    r_in = torch.clamp(torch.sqrt(rsq) - _WINDOW_CELL_SLACK, min=0.0) * cell
+    r_in = torch.clamp(maths.sqrt_rn(rsq) - _WINDOW_CELL_SLACK, min=0.0) * cell
     inner = blocked(r_in * r_in)[..., None] - bb
-    half_i = torch.sqrt(torch.clamp(inner, min=0.0))
+    half_i = maths.sqrt_rn(torch.clamp(inner, min=0.0))
     t_lo = t_c - half_o
     t_hi = t_c + half_o
     t_g = t_c - half_i
@@ -502,20 +502,30 @@ def occupancy_grid(state, cfg, dynamic_map):
     return vals & rv[..., :, None] & cv[..., None, :]
 
 
-def _lex_rank_masked(keys, idx, count_mask):
-    """Stable lexicographic rank of each entry of the last axis, counting
-    only ``count_mask``-True competitors (``sensors.py:1091-1116``).
-
-    ``keys`` is a tuple of ``[..., N]`` tensors, primary first; ties beyond
-    the keys break by index, as ``np.lexsort`` does.  Pairwise O(N^2): the
-    main path has N = 4.
-    """
+def _lex_cmp(keys, idx):
+    """``[..., N, N]``: entry j sorts before entry i (keys primary first,
+    then index)."""
     cmp = idx[:, None] > idx[None, :]                     # [N, N]: j before i
     for k in reversed(keys):
         less = k[..., :, None] > k[..., None, :]          # k_j < k_i
         eq = k[..., :, None] == k[..., None, :]
         cmp = less | (eq & cmp)
-    return torch.sum(cmp & count_mask[..., None, :], dim=-1)
+    return cmp
+
+
+def _lex_rank(keys, idx):
+    """Stable lexicographic rank of each entry of the last axis among all
+    entries (``sensors.py:1069-1088``): ``keys`` is a tuple of ``[..., N]``
+    tensors, primary first; ties beyond the keys break by index, as
+    ``np.lexsort`` does.  Pairwise O(N^2), as in the JAX package: SA-CADRL
+    ranks the A agents of an env."""
+    return torch.sum(_lex_cmp(keys, idx), dim=-1)
+
+
+def _lex_rank_masked(keys, idx, count_mask):
+    """:func:`_lex_rank` counting only ``count_mask``-True competitors
+    (``sensors.py:1091-1116``).  The main path has N = 4."""
+    return torch.sum(_lex_cmp(keys, idx) & count_mask[..., None, :], dim=-1)
 
 
 def other_agents_states(state, cfg):
@@ -536,7 +546,7 @@ def other_agents_states(state, cfg):
     pos, vel = state.pos, state.vel
     rel_x = pos[:, None, :, 0] - pos[:, :, None, 0]
     rel_y = pos[:, None, :, 1] - pos[:, :, None, 1]
-    dist_centers = torch.sqrt(rel_x * rel_x + rel_y * rel_y)
+    dist_centers = maths.sqrt_rn(rel_x * rel_x + rel_y * rel_y)
     prll_x, prll_y = state.ref_prll[..., 0, None], state.ref_prll[..., 1, None]
     orth_x, orth_y = state.ref_orth[..., 0, None], state.ref_orth[..., 1, None]
     p_par = rel_x * prll_x + rel_y * prll_y

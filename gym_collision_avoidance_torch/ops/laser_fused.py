@@ -42,6 +42,7 @@ import ctypes
 import numpy as np
 import torch
 
+from gym_collision_avoidance_torch.core.maths import sqrt_rn
 from gym_collision_avoidance_torch.maps import grid as map_grid
 from gym_collision_avoidance_torch.ops import build
 from gym_collision_avoidance_torch.ops.raymarch import (
@@ -105,7 +106,7 @@ def beam_compacted_plain(pos_e, gi_e, gj_e, rsq_e, cos_a, sin_a, gi_d, gj_d, irs
     t_c = relx[..., None] * c + rely[..., None] * s
     bb = rel2[..., None] - t_c * t_c
     disc = ro2[..., None] - bb
-    half_o = torch.sqrt(torch.clamp(disc, min=0.0))
+    half_o = sqrt_rn(torch.clamp(disc, min=0.0))
     t_lo = t_c - half_o
     t_hi = t_c + half_o
     rel = (disc > 0.0) & (t_hi >= 0.0) & (t_lo <= t_max) & span_ok[..., None]

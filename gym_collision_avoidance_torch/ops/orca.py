@@ -14,7 +14,9 @@ distance, index) among the candidates; here by a stable sort and a gather
 instead of the TPU's pairwise ranks and one-hot sums.  The LP loops over a
 prefix of lines slice it instead of masking the rest, which leaves every
 result unchanged (the masked rows never entered a result) and skips the
-work.  Matches the JAX package to ~1e-12 in float64.
+work.  Matches the JAX package to ~1e-12 in float64.  Every square root is
+``maths.sqrt_rn``: with it the card's velocities equal the CPU's bitwise
+(the rest is ``+ - * /`` and compares, IEEE on both devices).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from gym_collision_avoidance_torch.core.maths import sqrt_rn
 from gym_collision_avoidance_torch.maps.grid import reciprocal
 
 EPS = 1e-5  # RVO_EPSILON
@@ -58,7 +61,7 @@ def _lp1(pt, dr, lvalid, k, radius, opt_vel, direction_opt):
     dot_p = _dot2(p_k, d_k)
     disc = dot_p * dot_p + radius * radius - _dot2(p_k, p_k)
     fail = disc < 0.0
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt_rn(torch.clamp(disc, min=0.0))
     t_left = -dot_p - sq
     t_right = -dot_p + sq
     if k > 0:
@@ -94,7 +97,7 @@ def _lp2(pt, dr, lvalid, radius, opt_vel, direction_opt):
     else:
         speed_sq = _dot2(opt_vel, opt_vel)
         # the 1e-300 guard is 0 in float32, as in the JAX package
-        scaled = radius[..., None] * opt_vel / torch.sqrt(
+        scaled = radius[..., None] * opt_vel / sqrt_rn(
             torch.clamp(speed_sq, min=1e-300))[..., None]
         result = torch.where((speed_sq > radius * radius)[..., None], scaled, opt_vel)
 
@@ -131,7 +134,7 @@ def _lp3(pt, dr, lvalid, begin_line, radius, result):
         cross_pt = p_i[..., None, :] + tproj[..., None] * d_i[..., None, :]
         proj_pt = torch.where(small[..., None], mid, cross_pt)
         dd = dj - d_i[..., None, :]
-        dd_norm = torch.sqrt(torch.clamp(_dot2(dd, dd), min=1e-300))
+        dd_norm = sqrt_rn(torch.clamp(_dot2(dd, dd), min=1e-300))
         proj_dr = dd / dd_norm[..., None]
         pvalid = lvalid[..., :i] & ~same_dir
 
@@ -161,12 +164,12 @@ def _orca_lines(rel_pos, rel_vel, comb_r, vel_i, collab_i, inv_dt, inv_th):
     dot1 = _dot2(w, rel_pos)
     on_cutoff = (dot1 < 0.0) & (dot1 * dot1 > comb_r_sq * w_len_sq)
 
-    w_len = torch.sqrt(torch.clamp(w_len_sq, min=1e-300))
+    w_len = sqrt_rn(torch.clamp(w_len_sq, min=1e-300))
     unit_w = w / w_len[..., None]
     dir_cut = torch.stack([unit_w[..., 1], -unit_w[..., 0]], dim=-1)
     u_cut = (comb_r * inv_th - w_len)[..., None] * unit_w
 
-    leg = torch.sqrt(torch.clamp(dist_sq - comb_r_sq, min=0.0))
+    leg = sqrt_rn(torch.clamp(dist_sq - comb_r_sq, min=0.0))
     left = _det(rx, ry, w[..., 0], w[..., 1]) > 0.0
     safe_dist_sq = torch.clamp(dist_sq, min=1e-300)[..., None]
     dir_left = torch.stack([rx * leg - ry * comb_r, rx * comb_r + ry * leg],
@@ -181,7 +184,7 @@ def _orca_lines(rel_pos, rel_vel, comb_r, vel_i, collab_i, inv_dt, inv_th):
 
     # collision: cut-off at one time step
     w_c = rel_vel - inv_dt * rel_pos
-    w_c_len = torch.sqrt(torch.clamp(_dot2(w_c, w_c), min=1e-300))
+    w_c_len = sqrt_rn(torch.clamp(_dot2(w_c, w_c), min=1e-300))
     unit_w_c = w_c / w_c_len[..., None]
     dir_col = torch.stack([unit_w_c[..., 1], -unit_w_c[..., 0]], dim=-1)
     u_col = (comb_r * inv_dt - w_c_len)[..., None] * unit_w_c
@@ -219,7 +222,7 @@ def orca_solve(pos, vel, pref_vel, radius, max_speed, collab_coeff, valid, dt,
         speed_sq = _dot2(pref_vel, pref_vel)
         scale = torch.where(
             speed_sq > max_speed * max_speed,
-            max_speed / torch.sqrt(torch.clamp(speed_sq, min=1e-300)),
+            max_speed / sqrt_rn(torch.clamp(speed_sq, min=1e-300)),
             torch.ones_like(speed_sq))
         out = torch.where(valid[..., None], pref_vel * scale[..., None],
                           torch.zeros_like(pref_vel))

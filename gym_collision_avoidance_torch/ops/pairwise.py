@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from gym_collision_avoidance_torch.core.maths import sqrt_rn
 from gym_collision_avoidance_torch.ops import build
 
 # Kernel launches since import (or since a caller last set it to 0).
@@ -38,7 +39,7 @@ def pairwise_collisions_plain(pos, radius, valid):
     """
     A = pos.shape[-2]
     rel = pos[:, None, :, :] - pos[:, :, None, :]                # [E, A, A, 2]
-    dist = torch.sqrt(rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1])
+    dist = sqrt_rn(rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1])
     combined_radius = radius[:, :, None] + radius[:, None, :]
     eye = torch.eye(A, dtype=torch.bool, device=pos.device)
     pair_valid = valid[:, :, None] & valid[:, None, :] & ~eye

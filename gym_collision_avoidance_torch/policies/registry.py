@@ -3,9 +3,9 @@
 
 Every internal policy is a kernel ``(state, cfg, params) -> [E, A, 2]`` over
 the whole batch; the per-agent choice is a masked select on ``policy_id``.
-NonCoop, Static, the external mappers, GA3C-CADRL (``policies/ga3c.py``) and
-RVO (``policies/rvo.py``) are ported; SA-CADRL and DRL-Long raise
-``NotImplementedError`` naming their ROADMAP item.
+Every policy of the JAX package is ported: NonCoop, Static, the external
+mappers, GA3C-CADRL (``policies/ga3c.py``), SA-CADRL (``policies/cadrl.py``),
+RVO (``policies/rvo.py``) and DRL-Long (``policies/drl_long.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from gym_collision_avoidance_torch.policies import ga3c, rvo
+from gym_collision_avoidance_torch.policies import cadrl, drl_long, ga3c, rvo
 
 # -- policy type ids (state.policy_id values), as in the JAX package --------
 EXTERNAL = 0       # envs/policies/ExternalPolicy.py (identity passthrough)
@@ -49,11 +49,9 @@ LEARNING_POLICIES = (LEARNING, LEARNING_GA3C)
 # Policies with is_still_learning=True (the "learning" done mode).
 STILL_LEARNING_POLICIES = (LEARNING, LEARNING_GA3C)
 
-# Internal policies of later slices -> the ROADMAP item that ports them.
-UNPORTED_POLICIES = {
-    CADRL: "ROADMAP.md §1 item 10 (SA-CADRL)",
-    DRL_LONG: "ROADMAP.md §1 item 13 (DRL-Long)",
-}
+# Internal policies of later slices -> the ROADMAP item that ports them
+# (none is left).
+UNPORTED_POLICIES = {}
 
 
 def ga3c_actions_table(dtype=np.float64) -> np.ndarray:
@@ -91,7 +89,9 @@ INTERNAL_KERNELS = {
     STATIC: static_kernel,
     NONCOOP: noncoop_kernel,
     GA3C_CADRL: ga3c.ga3c_cadrl_kernel,
+    CADRL: cadrl.cadrl_kernel,
     RVO: rvo.rvo_kernel,
+    DRL_LONG: drl_long.drl_long_kernel,
 }
 
 

@@ -73,6 +73,7 @@ def main():
         print("needs a CUDA card", file=sys.stderr)
         return 1
     import chip_smoke as smoke
+    from gym_collision_avoidance_torch.harness import paths
     from gym_collision_avoidance_torch.ops import build, laser_fused
 
     this = laser_fused._kernel_func(torch.float32)
@@ -84,13 +85,14 @@ def main():
         laser_fused._FUNCS[torch.float32] = fn
         return laser_fused.beam_compacted_cuda(*call)
 
-    fast = smoke.laser_config(True)
-    b1 = smoke.laser_config(True, laserscan_num_candidate_discs=None)
+    fast = paths.laser_config(True)
+    b1 = paths.laser_config(True, laserscan_num_candidate_discs=None)
     shapes = {"empty": (fast, None, 16), "map_002": (fast, "002", 25), "b1": (b1, None, 26)}
     result = {}
     try:
         for key, (cfg, map_name, seed) in shapes.items():
-            _static, cells = smoke.static_inputs(cfg, map_name, pad=16 if map_name else 0)
+            _static, cells = paths.map_inputs(cfg, smoke.DEVICE, map_name,
+                                              pad=16 if map_name else 0)
             state = smoke.laser_states(cfg, smoke.E_LASER, seed, smoke.DEVICE)
             call = band.fused_args(cfg, state, cells)
             ref, ref_ovf = laser_fused.beam_compacted_plain(*call)

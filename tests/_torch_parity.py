@@ -10,12 +10,20 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from gym_collision_avoidance_torch import convert
 from gym_collision_avoidance_tpu.core import state as jstate
 
 # jax.config enables x64 in tests/conftest.py; CPU torch runs the port.
 DEVICE = "cpu"
+
+# The Tier-1 run spreads the tests over six xdist workers on one machine,
+# and every worker imports this module when it collects the suite.  Torch's
+# default of one intra-op thread per core in each worker oversubscribed the
+# cores (the band-model files took minutes of worker time for seconds of
+# work), so each worker keeps to one thread.
+torch.set_num_threads(1)
 
 
 def jax_leaves(state):
@@ -34,13 +42,15 @@ def to_torch(state):
     return convert.state_from_numpy(jax_leaves(state), device=DEVICE)
 
 
-def assert_tree_close(port, ref, rtol, atol, path=""):
+def assert_tree_close(port, ref, rtol, atol, path="", angles=()):
     """Compare nested dicts / arrays: exact for bool and int, else
-    ``assert_allclose`` with NaNs equal."""
+    ``assert_allclose`` with NaNs equal.  Leaves whose path ends with a name
+    in ``angles`` are compared modulo 2 pi (an angle an ulp from pi wraps
+    to either end of [-pi, pi))."""
     if isinstance(ref, dict):
         assert set(port) == set(ref), (path, sorted(port), sorted(ref))
         for k in ref:
-            assert_tree_close(port[k], ref[k], rtol, atol, f"{path}/{k}")
+            assert_tree_close(port[k], ref[k], rtol, atol, f"{path}/{k}", angles)
         return
     port = np.asarray(port.detach().cpu().numpy() if hasattr(port, "detach") else port)
     ref = np.asarray(ref)
@@ -51,12 +61,14 @@ def assert_tree_close(port, ref, rtol, atol, path=""):
         np.testing.assert_array_equal(port, ref, err_msg=path)
     else:
         assert port.dtype == ref.dtype, (path, port.dtype, ref.dtype)
+        if any(path.endswith("/" + name) for name in angles):
+            port = ref + (np.remainder(port - ref + np.pi, 2 * np.pi) - np.pi)
         np.testing.assert_allclose(port, ref, rtol=rtol, atol=atol, err_msg=path)
 
 
-def assert_states_close(port_state, ref_state, rtol, atol):
+def assert_states_close(port_state, ref_state, rtol, atol, angles=()):
     assert_tree_close(convert.state_to_numpy(port_state), jax_leaves(ref_state),
-                      rtol, atol, "state")
+                      rtol, atol, "state", angles)
 
 
 def jax_batched_init(cfg, pos, goal, radius, pref_speed, heading=None,

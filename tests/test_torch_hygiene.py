@@ -17,7 +17,8 @@ for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 for name in ("maps.grid", "ops.pairwise", "ops.raymarch", "ops.laser_fused", "ops.build",
              "obs.sensors", "env.step", "harness.serving", "convert", "models.ga3c_cadrl",
-             "policies.ga3c", "ops.orca", "policies.rvo", "core.prng"):
+             "policies.ga3c", "ops.orca", "policies.rvo", "core.prng", "models.cadrl",
+             "policies.cadrl", "models.drl_long", "policies.drl_long", "harness.paths"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gym_collision_avoidance_tpu"))
@@ -76,16 +77,30 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
 
 
 def test_policy_ids_6_and_8_are_ported():
-    """GA3C-CADRL (6) and RVO (8) have kernels; SA-CADRL (7) and DRL-Long
-    (9) still raise, naming their ROADMAP items."""
-    from gym_collision_avoidance_torch.policies import ga3c, registry, rvo
+    """Every internal policy has a kernel: GA3C-CADRL (6), SA-CADRL (7), RVO
+    (8) and DRL-Long (9), under the JAX package's registry names."""
+    from gym_collision_avoidance_torch.policies import cadrl, drl_long, ga3c, registry, rvo
 
     assert registry.internal_kernel(registry.GA3C_CADRL) is ga3c.ga3c_cadrl_kernel
+    assert registry.internal_kernel(registry.CADRL) is cadrl.cadrl_kernel
     assert registry.internal_kernel(registry.RVO) is rvo.rvo_kernel
-    assert set(registry.UNPORTED_POLICIES) == {registry.CADRL, registry.DRL_LONG}
-    for pid, item in ((registry.CADRL, "item 10"), (registry.DRL_LONG, "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            registry.internal_kernel(pid)
+    assert registry.internal_kernel(registry.DRL_LONG) is drl_long.drl_long_kernel
+    assert registry.POLICY_NAMES["CADRL"] == 7 and registry.POLICY_NAMES["drllong"] == 9
+    assert registry.UNPORTED_POLICIES == {}
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        registry.internal_kernel(registry.EXTERNAL)
+
+
+def test_cadrl_and_drl_long_weights_load_without_cuda_only_on_request(no_cuda):
+    from gym_collision_avoidance_torch.models import cadrl, drl_long
+
+    for load in (cadrl.load_params, drl_long.load_params, drl_long.init_params,
+                 drl_long.init_actor_critic_params):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            load()
+    assert cadrl.load_params(device="cpu").W0.device.type == "cpu"
+    net = drl_long.load_params(device="cpu")
+    assert net.has_critic and net.fc1.in_features == 4096
 
 
 def test_ga3c_weights_load_without_cuda_only_on_request(no_cuda):

@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from gym_collision_avoidance_torch import EnvConfig, init_state
+from gym_collision_avoidance_torch.core.maths import sqrt_rn
 from gym_collision_avoidance_torch.obs import sensors
 from gym_collision_avoidance_torch.ops import laser_fused
 
@@ -98,7 +99,7 @@ def wedge_radius(ro2, span_ok, t_max, with_r_out=True):
     definition never screens (``span_ok`` false).  ``with_r_out=False``
     leaves the disc's radius out (too tight, for the tests)."""
     a, b = margin_coefficients(ro2.dtype)
-    r_out = torch.where(ro2 > 0, torch.sqrt(torch.clamp(ro2, min=0.0)), 0.0)
+    r_out = torch.where(ro2 > 0, sqrt_rn(torch.clamp(ro2, min=0.0)), 0.0)
     far = t_max + r_out
     w = a * far + b * (far * far) / r_out
     if with_r_out:
@@ -142,7 +143,7 @@ def screen(args):
     s = sin_a.reshape(E, Ae, B, 1, L // B)
     t_c = relx[..., None] * c + rely[..., None] * s
     disc = ro2[..., None] - (rel2[..., None] - t_c * t_c)
-    half = torch.sqrt(torch.clamp(disc, min=0.0))
+    half = sqrt_rn(torch.clamp(disc, min=0.0))
     t_lo, t_hi = t_c - half, t_c + half
     cross = (disc > 0.0) & (t_hi >= 0.0) & (t_lo <= t_max) & span_ok[..., None]
     return cross, t_lo, t_hi

@@ -108,6 +108,26 @@ def test_orca_float32_is_finite_and_matches_jax(A):
             assert (fail < A - 1).any(), f"no agent reached LP3 ({kind})"
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_sqrt_rn_is_correctly_rounded(dtype):
+    """``maths.sqrt_rn``, the package's square root, equals numpy's IEEE
+    root bitwise on the CPU, on contiguous and strided inputs, zeros and
+    subnormals included, and so do ``norm2`` and ``l2norm``."""
+    from gym_collision_avoidance_torch.core import maths
+
+    rng = np.random.RandomState(9)
+    x = np.concatenate([rng.uniform(0, 64, 200_000), np.exp(rng.uniform(-80, 80, 50_000)),
+                        [0.0, np.finfo(dtype).tiny / 4, np.inf]]).astype(dtype)
+    for arr in (x, x[::3]):
+        got = maths.sqrt_rn(torch.as_tensor(arr)).numpy()
+        assert got.dtype == dtype
+        np.testing.assert_array_equal(got.view(np.uint8), np.sqrt(arr).view(np.uint8))
+    vec = torch.as_tensor(rng.uniform(-3, 3, (64, 2)).astype(dtype))
+    want = np.sqrt(vec[:, 0].numpy() ** 2 + vec[:, 1].numpy() ** 2)
+    np.testing.assert_array_equal(maths.norm2(vec).numpy(), want)
+    np.testing.assert_array_equal(maths.l2norm(vec[:, 0], vec[:, 1]).numpy(), want)
+
+
 def test_orca_collab_coeff_zero_is_egoistic():
     """Head-on pair: the coefficient-0 agent keeps (nearly) its preferred
     velocity while a 0.5 agent deviates."""

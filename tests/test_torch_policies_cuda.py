@@ -1,4 +1,4 @@
-"""GA3C-CADRL and ORCA on the card against the CPU.
+"""GA3C-CADRL, SA-CADRL, DRL-Long and ORCA on the card against the CPU.
 
 Imports neither JAX nor ``tests/conftest.py``'s setup, so it runs on a
 machine with a CUDA card and no JAX::
@@ -9,7 +9,15 @@ Without a card every case skips.  The GA3C net in float32 on the card, TF32
 off, picks the same action as the float64 net on the CPU for at least 99.9%
 of 16384 seeded obs (float32 rounding flips near-ties); with TF32 on the
 mismatch count is printed, not held.  ORCA in float32 on mid-episode
-``orca4`` states agrees with the CPU within rtol 1e-4 / atol 1e-5.
+``orca4`` states equals the CPU bitwise (its roots are ``maths.sqrt_rn``),
+and CUDA's ``torch.sqrt``, which ``sqrt_rn`` keeps on the card, is
+correctly rounded in float32 and float64.
+
+SA-CADRL in float32 on the card, TF32 off, on seeded 4-agent states: the
+candidate values within atol 1e-4 of the float64 CPU run and the action
+index equal for at least 99.9% of agents.  DRL-Long's float32 CNN on the
+card, cuDNN's TF32 off, within rtol 1e-5 / atol 1e-5 of the CPU on 8192
+seeded scans.  With TF32 on, how far each moves is printed, not held.
 """
 
 import numpy as np
@@ -18,8 +26,10 @@ import torch
 
 from gym_collision_avoidance_torch import EnvConfig
 from gym_collision_avoidance_torch.env import autoreset
-from gym_collision_avoidance_torch.models import ga3c_cadrl
+from gym_collision_avoidance_torch import init_state
+from gym_collision_avoidance_torch.models import cadrl, drl_long, ga3c_cadrl
 from gym_collision_avoidance_torch.ops import orca
+from gym_collision_avoidance_torch.policies import cadrl as cadrl_policy
 from gym_collision_avoidance_torch.policies import registry, rvo
 from gym_collision_avoidance_torch.scenarios import random_cases
 
@@ -86,8 +96,86 @@ def test_orca_card_matches_cpu_float32(cuda_device):
     got, branch = orca.orca_solve(*rvo.orca_inputs(st, cfg, None))
     want, want_branch = orca.orca_solve(*rvo.orca_inputs(st.to("cpu"), cfg, None))
     assert torch.isfinite(got).all()
-    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    assert torch.equal(branch.cpu(), want_branch)
     print(f"\nORCA float32 on {torch.cuda.get_device_name(0)}: largest difference "
           f"{float((got.cpu() - want).abs().max()):.3g}, "
           f"{int((branch.cpu() != want_branch).sum())} of {E * 4} LP branches differ, "
           f"{int((want_branch < 3).sum())} agents in LP3")
+
+
+@pytest.mark.cuda
+def test_cuda_sqrt_is_correctly_rounded(cuda_device):
+    rng = np.random.RandomState(0)
+    for dtype in (np.float32, np.float64):
+        x = np.concatenate([rng.uniform(0, 64, 4_000_000), np.exp(rng.uniform(-80, 80, 1_000_000)),
+                            [0.0, np.finfo(dtype).tiny / 4]]).astype(dtype)
+        got = torch.sqrt(torch.as_tensor(x, device=cuda_device)).cpu().numpy()
+        np.testing.assert_array_equal(got.view(np.uint8), np.sqrt(x).view(np.uint8))
+
+
+def _tf32(on):
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def _cadrl_states(seed, E, device):
+    """Seeded 4-agent states with random velocities and past velocities."""
+    rng = np.random.RandomState(seed)
+    cfg = EnvConfig(dtype="float32")
+    st = init_state(cfg, rng.uniform(-4, 4, (E, 4, 2)), rng.uniform(-4, 4, (E, 4, 2)),
+                    rng.uniform(0.2, 0.6, (E, 4)), rng.uniform(0.5, 1.5, (E, 4)),
+                    heading=rng.uniform(-np.pi, np.pi, (E, 4)),
+                    policy_id=np.full((E, 4), registry.CADRL, np.int32), device=device)
+    return cfg, st.replace(
+        vel=torch.as_tensor(rng.uniform(-1, 1, (E, 4, 2)), dtype=torch.float32, device=device),
+        past_vel=torch.as_tensor(rng.uniform(-1, 1, (E, 4, 2, 2)), dtype=torch.float32,
+                                 device=device))
+
+
+@pytest.mark.cuda
+def test_cadrl_card_matches_cpu_float32(cuda_device):
+    cfg, st = _cadrl_states(0, 4096, cuda_device)
+    cpu = st.to("cpu").map(lambda x: x.double() if x.is_floating_point() else x)
+    want, _ = cadrl_policy.cadrl_values(
+        cpu, cfg.replace(dtype="float64"),
+        {"cadrl": cadrl.load_params(dtype=torch.float64, device="cpu")})
+    params = {"cadrl": cadrl.load_params(device=cuda_device)}
+    assert not torch.backends.cuda.matmul.allow_tf32
+    got, _ = cadrl_policy.cadrl_values(st, cfg, params)
+    agree = (got.argmax(-1).cpu() == want.argmax(-1)).double().mean().item()
+    assert agree >= 0.999, agree
+    torch.testing.assert_close(got.cpu().double(), want, rtol=0, atol=1e-4)
+    _tf32(True)
+    try:
+        tf32, _ = cadrl_policy.cadrl_values(st, cfg, params)
+    finally:
+        _tf32(False)
+    print(f"\nSA-CADRL float32 on {torch.cuda.get_device_name(0)}: "
+          f"{int((got.argmax(-1).cpu() != want.argmax(-1)).sum())} of {want.shape[0] * 4} "
+          f"argmax mismatches with TF32 off (values within "
+          f"{float((got.cpu().double() - want).abs().max()):.3g}), "
+          f"{int((tf32.argmax(-1).cpu() != want.argmax(-1)).sum())} with TF32 on (values within "
+          f"{float((tf32.cpu().double() - want).abs().max()):.3g})")
+
+
+@pytest.mark.cuda
+def test_drl_long_card_matches_cpu_float32(cuda_device):
+    rng = np.random.RandomState(1)
+    B = 8192
+    args = [torch.as_tensor(a, dtype=torch.float32) for a in (
+        rng.uniform(-0.5, 0.5, (B, 3, 512)), rng.uniform(-4, 4, (B, 2)),
+        rng.uniform(-1, 1, (B, 2)))]
+    want = drl_long.forward(drl_long.load_params(device="cpu"), *args)
+    net = drl_long.load_params(device=cuda_device)
+    assert not torch.backends.cudnn.allow_tf32
+    got = drl_long.forward(net, *(a.to(cuda_device) for a in args)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    _tf32(True)
+    try:
+        tf32 = drl_long.forward(net, *(a.to(cuda_device) for a in args)).cpu()
+    finally:
+        _tf32(False)
+    print(f"\nDRL-Long float32 on {torch.cuda.get_device_name(0)}: largest action difference "
+          f"{float((got - want).abs().max()):.3g} with TF32 off, "
+          f"{float((tf32 - want).abs().max()):.3g} with TF32 on")

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from gym_collision_avoidance_torch import EnvConfig, init_state
+from gym_collision_avoidance_torch.core.maths import sqrt_rn
 from gym_collision_avoidance_torch.maps import grid
 from gym_collision_avoidance_torch.obs import sensors
 from gym_collision_avoidance_torch.ops import raymarch
@@ -81,7 +82,7 @@ def _sources(args):
 
     src_j = torch.cat([gj.to(dtype) + 0.5, cell_centre(cj).expand(E, n_cells)], dim=1)
     src_i = torch.cat([gi.to(dtype) + 0.5, cell_centre(ci).expand(E, n_cells)], dim=1)
-    r_out = torch.cat([torch.sqrt(rsq) + slack, slack.expand(E, n_cells)], dim=1)
+    r_out = torch.cat([sqrt_rn(rsq) + slack, slack.expand(E, n_cells)], dim=1)
     own = ((gi[:, None, :] == gi_e[..., None]) & (gj[:, None, :] == gj_e[..., None])
            & (rsq[:, None, :] == rsq_e[..., None]))                       # [E, Ae, A]
     own = torch.cat([own, own.new_zeros(own.shape[:2] + (n_cells,))], dim=2)
@@ -129,7 +130,7 @@ def bands(args):
     tc = relj * c - reli * s
     bb = (relj * relj + reli * reli) - tc * tc
     disc = (r_out * r_out)[:, None, :, None] - bb
-    half = torch.sqrt(torch.clamp(disc, min=0.0))
+    half = sqrt_rn(torch.clamp(disc, min=0.0))
     flo = torch.clamp(torch.floor((tc - half) * kpc) - 1, min=0.0)
     fhi = torch.clamp(torch.floor((tc + half) * kpc) + 1, max=R - 1.0)
     cross = (disc > 0) & (flo <= fhi) & ~own[..., None]

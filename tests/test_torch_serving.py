@@ -99,3 +99,21 @@ def test_float32_loop_stays_finite():
             assert torch.isfinite(leaf).all(), name
     assert server.episodes_completed() > 64
     assert server.throughput(reps=1, pipeline=1) > 0
+
+
+@pytest.mark.parametrize("name", ["main", "ga3c4", "orca4", "cadrl4", "drl2", "laser_full",
+                                  "laser_fast"])
+def test_serving_paths_run_on_the_cpu(name):
+    """Each path of ``harness/paths.py`` (what ``chip_smoke.py`` and the
+    profiling scripts drive) serves two steps of 2 envs on the CPU with
+    finite rewards; the policy paths' mid-episode states start every env on
+    its own pool case."""
+    from gym_collision_avoidance_torch.harness import paths
+
+    path = paths.serving_path(name, "cpu")
+    assert name in paths.PATHS and path.num_envs >= 256
+    out = path.server(num_envs=2, steps_per_dispatch=2, device="cpu").dispatch()
+    assert out["mean_reward"].shape[0] == 2 and torch.isfinite(out["mean_reward"]).all()
+    if not name.startswith("laser"):
+        state, cases = paths.mid_episode_states(path, 3, 1, "cpu")
+        assert state.pos.shape[:2] == (3, len(path.policy_id)) and cases == 3

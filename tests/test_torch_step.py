@@ -199,12 +199,18 @@ def test_unported_pieces_raise():
     # or a cell list is a usage error, as in the JAX package
     with pytest.raises(ValueError, match="static_map"):
         t_env_step(st, None, cfg, sensors=("laserscan",))
-    for pid, item in ((7, "item 10"), (9, "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_env_step(st, None, cfg, active_policies=(pid,))
-    # GA3C-CADRL (6) and RVO (8) are ported; GA3C needs its weights
-    with pytest.raises(ValueError, match="ga3c_cadrl"):
-        t_env_step(st.replace(policy_id=torch.full_like(st.policy_id, 6)), None, cfg,
-                   active_policies=(6,))
+    # every internal policy is ported: GA3C-CADRL (6), SA-CADRL (7) and
+    # DRL-Long (9) need their weights, DRL-Long also the laserscan; an id
+    # without a kernel still raises
+    for pid, key in ((6, "ga3c_cadrl"), (7, "cadrl"), (9, "drl_long")):
+        with pytest.raises(ValueError, match=key):
+            t_env_step(st.replace(policy_id=torch.full_like(st.policy_id, pid)), None, cfg,
+                       active_policies=(pid,))
+    from gym_collision_avoidance_torch.models import drl_long
+    with pytest.raises(ValueError, match="laserscan"):
+        t_env_step(st, None, cfg, {"drl_long": drl_long.init_params(16, device="cpu")},
+                   active_policies=(9,))
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        t_env_step(st, None, cfg, active_policies=(11,))
     t_env_step(st.replace(policy_id=torch.full_like(st.policy_id, 8)), None, cfg,
                active_policies=(8,))
