@@ -35,6 +35,26 @@ before and read just after:
   ``drl_long_2agent_rvo_tpu`` net) against an RVO agent on the empty
   16 x 16 m map, 512 beams, the full pass, E = 4096 (kernels K1 and K2).
 
+It trains with the port's PPO trainer on the three training paths of
+``harness/paths.py``, each at its recipe's width, the kernel counts set to 0
+after a warm-up iteration and read after the timed ones:
+
+* train_ga3c4: stage 3 of ``scripts/train_curriculum.sh``, GA3C-CADRL
+  self-play with 4 agents, E = 256, T = 64, warm-started from
+  ``ppo_selfplay_4agent_curr`` (K1);
+* train_drl2: ``RESULTS.md``'s DRL-Long recipe against RVO, E = 1024, T = 64,
+  512 beams, no static cell (K1 and K2, which is also held bitwise against
+  its plain version on one rollout step's arguments);
+* train_mlp2: ``README.md``'s MLP example against RVO, E = 1024, T = 64 (K1).
+
+Each reports ms per iteration split into rollout, GAE and update,
+env-steps/s, and one traced iteration's kernels and idle share.  The phases
+of one ``train_step`` of each path at E = 64, T = 16 on the card are held
+against the CPU's, every rollout step and every minibatch step from the
+CPU's inputs with the same noise (:func:`compare_training`), and two
+iterations of train_ga3c4 and train_drl2 from one seed must give the same
+bits twice.
+
 It checks the fast route against the full pass wherever its exactness guard
 is quiet, and one env step on the card against the same step on the CPU,
 each env on its own pool case: on the main path, on ga3c4, orca4, cadrl4
@@ -50,6 +70,7 @@ JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import importlib.util
 import json
 import math
@@ -76,6 +97,20 @@ LASER_STEPS, LASER_DISPATCHES = 64, 4
 E_DRL2_STEP = 64       # envs of drl2's whole compared step
 POLICY_STEPS, POLICY_DISPATCHES = 64, 3
 KERNEL_SOURCES = ("pairwise", "raymarch", "laser_fused")
+# timed iterations of each training path (after one warm-up), and the size of
+# the card-against-CPU training step
+TRAIN_ITERS = {"train_ga3c4": 3, "train_drl2": 3, "train_mlp2": 1}
+E_TRAIN_CMP, T_TRAIN_CMP = 64, 16
+TRAIN_CHECK_STEPS = 2  # rollout steps whose K1/K2 launches are held bitwise
+# the CPU tests' tolerances (tests/test_torch_ppo.py)
+ROLL_TOL = dict(rtol=1e-5, atol=2e-6)
+GAE_TOL = dict(rtol=1e-5, atol=1e-5)
+# a minibatch's gradients on the card against the CPU's from the same weights
+# and samples, each entry within this share of its tensor's largest CPU entry
+# (tests/test_torch_train_cuda.py's limit), once the rows that took another
+# side of a kink on the card are left out (compare_training)
+GRAD_TOL = 1e-4
+METRICS_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
 def check(cond, msg):
@@ -160,6 +195,20 @@ def phase_build(build):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def hold_k1(pairwise, args, coll, near, what):
+    """K1's outputs ``coll, near`` on ``args`` against its plain version:
+    collision flags equal, nearest gaps bitwise equal (NaN where it has
+    NaN); returns the largest gap difference."""
+    ref_coll, ref_near = pairwise.pairwise_collisions_plain(*args)
+    check(torch.equal(coll, ref_coll), f"K1 collision flags differ ({what})")
+    finite = ~torch.isnan(ref_near)
+    check(torch.equal(torch.isnan(near), ~finite), f"K1 NaN pattern differs ({what})")
+    itype = torch.int32 if near.dtype == torch.float32 else torch.int64
+    check(torch.equal(near[finite].view(itype), ref_near[finite].view(itype)),
+          f"K1 nearest gaps not bitwise equal ({what})")
+    return max_abs_err(near, ref_near)
+
+
 def phase_kernels(pairwise):
     """Hold K1 bitwise against the plain version; time both at the main
     path's shape, on the device (CUDA graph replay) and as eager calls."""
@@ -170,17 +219,10 @@ def phase_kernels(pairwise):
         args = pairwise_inputs(7, E, A, dtype, DEVICE, nan)
         coll, near = pairwise.pairwise_collisions(*args)
         torch.cuda.synchronize()
-        ref_coll, ref_near = pairwise.pairwise_collisions_plain(*args)
-        check(torch.equal(coll, ref_coll), f"collision flags differ {dtype} E={E} A={A}")
-        finite = ~torch.isnan(ref_near)
-        check(torch.equal(torch.isnan(near), ~finite), "NaN pattern differs")
-        itype = torch.int32 if dtype == torch.float32 else torch.int64
-        check(torch.equal(near[finite].view(itype), ref_near[finite].view(itype)),
-              f"nearest gaps not bitwise equal {dtype} E={E} A={A} nan={nan}")
+        worst = max(worst, hold_k1(pairwise, args, coll, near, f"{dtype} E={E} A={A} nan={nan}"))
         if not nan:
             touching = args[2][::4, 0] & args[2][::4, 1]
             check(bool(coll[::4, 0][touching].all()), "touching pairs must collide")
-        worst = max(worst, max_abs_err(near, ref_near))
         print(f"K1 {str(dtype)[6:]} E={E} A={A} nan={nan}: bitwise equal", flush=True)
 
     pos, radius, valid = pairwise_inputs(8, E_MAIN, A_MAIN, torch.float32, DEVICE)
@@ -1001,6 +1043,346 @@ def phase_laser_card_vs_cpu():
     print(json.dumps({"laser_card_vs_cpu": result}), flush=True)
 
 
+# ------------------------------------------------------------ training
+
+
+def profiler_module():
+    """``scripts/profile_torch_serving.py``, whose ``trace_iteration``
+    traces one PPO iteration."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_serving", os.path.join(root, "scripts", "profile_torch_serving.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def finite_metrics(name, metrics):
+    values = {k: float(v) for k, v in metrics.items()}
+    check(all(math.isfinite(v) for v in values.values()), f"{name}: non-finite metric {values}")
+    check(values["episodes_finished"] > 0, f"{name}: no episode finished in an iteration")
+    return values
+
+
+def phase_training(name, kernels, profiler):
+    """Train ``name``'s recipe at its width: one warm-up iteration, the
+    counts to 0, ``TRAIN_ITERS[name]`` timed iterations (each phase ends in
+    a synchronise), then one traced iteration.  K1 must launch once per
+    rollout step, K2 once per step on train_drl2 and never elsewhere, K3
+    never."""
+    from gym_collision_avoidance_torch.harness import paths
+
+    path = paths.training_path(name)
+    trainer = path.trainer(DEVICE)
+    carry = path.init(trainer)
+    gen = torch.Generator(DEVICE).manual_seed(7)
+    *carry, _ = trainer.train_step(*carry, rng=gen)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    iters, T, E = TRAIN_ITERS[name], path.ppo.horizon, path.ppo.num_envs
+    timings, metrics = {}, []
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        *carry, m = trainer.train_step(*carry, rng=gen, timings=timings)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: k.LAUNCHES for n, k in kernels.items()}
+    check(launches["pairwise"] == iters * T,
+          f"{name}: K1 launched {launches['pairwise']} times in {iters * T} rollout steps")
+    want_k2 = iters * T if name == "train_drl2" else 0
+    check(launches["raymarch"] == want_k2,
+          f"{name}: K2 launched {launches['raymarch']} times, not {want_k2}")
+    check(launches["laser_fused"] == 0, f"{name}: K3 launched")
+    values = [finite_metrics(name, m) for m in metrics]
+    for k, p in carry[0].named_parameters():
+        check(bool(torch.isfinite(p).all()), f"{name}: non-finite parameter {k}")
+    traced, carry = profiler.trace_iteration(trainer, carry, gen)
+    line = {"num_envs": E, "horizon": T, "agents": path.ppo.num_agents,
+            "arch": path.ppo.policy_arch, "minibatch_rows": path.ppo.mb_envs * T,
+            "iterations": iters, "seconds": seconds, "ms_per_iteration": 1e3 * seconds / iters,
+            **{f"{k}_ms_per_iteration": 1e3 * v / iters for k, v in timings.items()},
+            "env_steps_per_s": iters * E * T / seconds,
+            "launches": launches, "k1_launches_per_iteration": launches["pairwise"] / iters,
+            "k2_launches_per_iteration": launches["raymarch"] / iters,
+            "kernels_per_iteration": traced["kernels_per_iteration"],
+            "traced": {k: traced[k] for k in ("wall_ms_per_iteration",
+                                              "device_busy_ms_per_iteration",
+                                              "device_idle_share", "phases")},
+            "metrics": values}
+    print(json.dumps({name: line}), flush=True)
+    return launches
+
+
+def state_to(carry, device):
+    """``(states, counters, obs)`` copied to ``device``."""
+    states, counters, obs = carry
+    return (states.map(lambda x: x.to(device)), counters.to(device),
+            {k: v.to(device) for k, v in obs.items()})
+
+
+def compare_sample(name, t, want, got, params, trainer, noise_t):
+    """One rollout step's sample on the card against the CPU's, from the
+    same inputs: GA3C's action indices equal off near-ties (the CPU's
+    ``logits + g`` at the two indices within 1e-5; such an env is left out
+    of this step's other outputs), ``done``, ``game_over`` and ``alive``
+    equal, the floats to ROLL_TOL.  GA3C's log-probs are log-softmaxes of
+    logits that a trained net puts far from 0, so their rounding is
+    absolute in the logits' scale: they take rtol times each row's largest
+    |logit| as well.  Returns the near-tie gaps and the largest float
+    differences."""
+    got = {k: v.cpu() for k, v in got.items()}
+    L = len(want["done"]) // len(want["game_over"])
+    stream_ok = torch.ones(len(want["done"]), dtype=torch.bool)
+    gaps, scale = [], {}
+    if want["act"].shape[-1] == 1:                        # GA3C's action indices
+        with torch.no_grad():
+            (logits,), _ = trainer.family.net_apply(params, want["x"])
+        scale["logp"] = ROLL_TOL["rtol"] * logits.abs().amax(dim=-1)
+        differ = (got["act"] != want["act"])[:, 0]
+        if bool(differ.any()):
+            score = logits[differ] + noise_t[differ]
+            rows = torch.arange(len(score))
+            gaps = (score[rows, want["act"][differ, 0].long()]
+                    - score[rows, got["act"][differ, 0].long()]).abs().tolist()
+        check(all(g < 1e-5 for g in gaps),
+              f"{name}: step {t}: action indices differ off a near-tie: {gaps}")
+        env_ok = ~differ.reshape(-1, L).any(dim=1)
+        stream_ok = env_ok.repeat_interleave(L)
+    else:
+        env_ok = torch.ones(len(want["game_over"]), dtype=torch.bool)
+    worst = {}
+    for k, w in want.items():
+        ok = env_ok if k == "game_over" else stream_ok
+        g, w = got[k][ok], w[ok]
+        if w.is_floating_point() and k != "alive":
+            extra = scale[k][ok] if k in scale else 0.0
+            close = (g - w).abs() <= ROLL_TOL["atol"] + ROLL_TOL["rtol"] * w.abs() + extra
+            check(bool(close.all()),
+                  f"{name}: step {t}: rollout {k} differs by up to {max_abs_err(g, w)}")
+            worst[k] = max_abs_err(g, w)
+        else:
+            check(torch.equal(g, w), f"{name}: step {t}: rollout {k} differs")
+    return gaps, worst
+
+
+@contextlib.contextmanager
+def kink_sides(sides, rows):
+    """Append to ``sides``, for each kink of the loss that the enclosed code
+    passes, which side each of the ``rows`` samples took: the sign of every
+    ReLU input, and where the probability ratio (``maths.clip``'s one call
+    with a row axis) lies against the clip range, ties apart."""
+    from gym_collision_avoidance_torch.core import maths
+
+    relu, clip = [], []
+    with capture(torch, "relu", relu), capture(maths, "clip", clip):
+        yield
+    for (z,) in relu:
+        check(z.shape[0] == rows, f"a ReLU input of shape {tuple(z.shape)} has no row axis")
+        sides.append((z > 0).reshape(rows, -1).cpu())
+    ratios = [(x, lo, hi) for x, lo, hi in clip if x.shape == (rows,)]
+    check(len(ratios) == 1, f"{len(ratios)} clips of the ratio")
+    x, lo, hi = ratios[0]
+    sides.append(torch.stack([x < lo, x <= lo, x < hi, x <= hi], dim=1).cpu())
+
+
+def compare_training(name):
+    """The three phases of one ``train_step`` of ``name``'s recipe at
+    E_TRAIN_CMP envs and T_TRAIN_CMP steps, on the card and on the CPU, each
+    from the same inputs: every rollout step from the CPU's states and the
+    same noise (:func:`compare_sample`; a multi-step rollout would amplify
+    the devices' ulps of ``atan2`` near the goals, PERF.md), the GAE of each
+    device's samples to GAE_TOL, and every ``minibatch_step`` of the update
+    epochs from the CPU's weights and optimizer state.
+
+    A sample whose ReLU input or ratio lies within rounding of a kink can
+    take one side of it on the card and the other on the CPU, which moves
+    its row's whole share of the gradient (:func:`kink_sides` finds them).
+    Such rows are left out of the minibatch (weight 0) on both devices and
+    counted; on the rest, the loss, value loss and clip fraction are held to
+    METRICS_TOL and every gradient entry to GRAD_TOL.  The card's global
+    norm of the CPU's gradients is held within rtol 1e-5, and the card's
+    Adam step (``optim.adam``) on the CPU's clipped gradients and state
+    against the CPU's update (elementwise IEEE operations: reported bitwise,
+    held to rtol 1e-6 / atol lr * 1e-7).  Chained steps are not compared:
+    Adam divides each gradient by its own RMS, which amplifies float32
+    rounding where a trained net's gradient is mostly cancellation
+    (PERF.md §6)."""
+    from gym_collision_avoidance_torch.harness import paths
+    from gym_collision_avoidance_torch.train import optim
+    from gym_collision_avoidance_torch.train.ppo import compute_gae
+
+    path = paths.training_path(name).resized(E_TRAIN_CMP, T_TRAIN_CMP)
+    ppo = path.ppo
+    cpu_tr, card_tr = path.trainer("cpu"), path.trainer(DEVICE)
+    params, opt, *env = path.init(cpu_tr)
+    card_params = copy.deepcopy(params).to(DEVICE)
+    noise = cpu_tr.sample_noise(torch.Generator().manual_seed(3))
+    key = cpu_tr.family.noise
+    samples = {"cpu": [], "card": []}
+    gaps, worst = [], {}
+    for t in range(ppo.horizon):
+        *nxt, want = cpu_tr.rollout_step(params, *env, noise[key][t])
+        *_, got = card_tr.rollout_step(card_params, *state_to(env, DEVICE),
+                                       noise[key][t].to(DEVICE))
+        g, w = compare_sample(name, t, want, got, params, cpu_tr, noise[key][t])
+        gaps += g
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
+        samples["cpu"].append(want)
+        samples["card"].append(got)
+        env = nxt
+    torch.cuda.synchronize()
+    data = {}
+    for dev, trainer, p in (("cpu", cpu_tr, params), ("card", card_tr, card_params)):
+        d = {k: torch.stack([s[k] for s in samples[dev]]) for k in samples[dev][0]}
+        with torch.no_grad():
+            _, d["last_value"] = trainer.family.net_apply(p, trainer.flatten_ego(
+                state_to(env, trainer.device)[2]))
+        d["adv"], d["target"] = compute_gae(d["reward"], d["value"], d["done"],
+                                            d["last_value"], ppo.gamma, ppo.gae_lambda)
+        data[dev] = d
+    for k in ("adv", "target"):
+        got, want = data["card"][k].cpu(), data["cpu"][k]
+        check(torch.allclose(got, want, **GAE_TOL),
+              f"{name}: GAE {k} differs by up to {max_abs_err(got, want)}")
+        worst[f"gae_{k}"] = max_abs_err(got, want)
+
+    def card(tensors):
+        return {k: v.to(DEVICE) for k, v in tensors.items()}
+
+    d = data["cpu"]
+    grad_err, stat_err, update_err, bitwise, kinks, ratio_kinks = 0.0, 0.0, 0.0, 0, [], 0
+    mbs = list(cpu_tr.minibatches(d, d["adv"], d["target"], noise["perm"]))
+    for m, mb in enumerate(mbs):
+        rows = len(mb["adv"])
+        before = copy.deepcopy(params)
+        card_opt = {"count": opt["count"], "mu": card(opt["mu"]), "nu": card(opt["nu"])}
+        sides = {"cpu": [], "card": []}
+        with kink_sides(sides["cpu"], rows):
+            want_g, want_s, want_u, next_opt = cpu_tr.minibatch_step(params, opt, mb)
+        with kink_sides(sides["card"], rows):
+            got_g, got_s, _, _ = card_tr.minibatch_step(copy.deepcopy(before).to(DEVICE),
+                                                        card_opt, card(mb))
+        crossed = [(a != b).any(dim=1) for a, b in zip(*sides.values())]
+        kink = torch.stack(crossed).any(dim=0)
+        kinks.append(int(kink.sum()))
+        ratio_kinks += int(crossed[-1].sum())          # kink_sides puts the ratio last
+        held = (want_g, want_s, got_g, got_s)
+        if kinks[-1]:
+            kept = dict(mb, alive=mb["alive"] * (~kink).to(mb["alive"].dtype))
+            held = (*cpu_tr.gradients(copy.deepcopy(before), kept),
+                    *card_tr.gradients(copy.deepcopy(before).to(DEVICE), card(kept)))
+        hw_g, hw_s, hg_g, hg_s = held
+        hg_s = hg_s.cpu()
+        check(torch.allclose(hg_s, hw_s, **METRICS_TOL),
+              f"{name}: minibatch {m}: loss, value loss, clip fraction {hg_s.tolist()} "
+              f"against {hw_s.tolist()} ({kinks[-1]} rows at a kink left out)")
+        stat_err = max(stat_err, max_abs_err(hg_s, hw_s))
+        for k, w in hw_g.items():
+            err = max_abs_err(hg_g[k], w) / max(float(w.abs().max()), 1e-30)
+            check(err <= GRAD_TOL, f"{name}: minibatch {m}: gradient {k} differs by "
+                  f"{err:.3g} of its largest entry ({kinks[-1]} rows at a kink left out)")
+            grad_err = max(grad_err, err)
+        norms = [float(optim.global_norm(g)) for g in (card(want_g), want_g)]
+        check(math.isclose(*norms, rel_tol=1e-5), f"{name}: minibatch {m}: global norm "
+              f"{norms[0]} against {norms[1]}")
+        # optim.update is adam(clip_by_global_norm(...)): the card's Adam on
+        # the very clipped gradients the CPU's step used
+        clipped = optim.clip_by_global_norm(want_g, ppo.max_grad_norm)
+        got_u, _ = optim.adam(card(clipped), card_opt, ppo.lr)
+        for k, w in want_u.items():
+            g = got_u[k].cpu()
+            check(torch.allclose(g, w, rtol=1e-6, atol=ppo.lr * 1e-7),
+                  f"{name}: minibatch {m}: Adam update of {k} differs by up to "
+                  f"{max_abs_err(g, w)}")
+            update_err = max(update_err, max_abs_err(g, w))
+            bitwise += bitwise_equal(g, w)
+        opt = next_opt
+    torch.cuda.synchronize()
+    return {"envs": ppo.num_envs, "horizon": ppo.horizon, "samples": ppo.horizon * cpu_tr.B,
+            "action_index_mismatches_at_near_ties": len(gaps), "near_tie_gaps": gaps,
+            "max_abs_err": worst, "minibatch_steps": len(mbs),
+            "minibatch_rows": len(mbs[0]["adv"]), "rows_at_a_kink_left_out": kinks,
+            "of_them_at_the_ratio_clip": ratio_kinks,
+            "max_stats_diff": stat_err, "max_gradient_diff_of_largest_entry": grad_err,
+            "max_adam_update_diff": update_err,
+            "adam_updates_bitwise_equal": f"{bitwise} of {len(mbs) * len(opt['mu'])}"}
+
+
+def phase_train_card_vs_cpu():
+    result = {name: compare_training(name) for name in TRAIN_ITERS}
+    print(json.dumps({"train_card_vs_cpu": result}), flush=True)
+
+
+def phase_train_deterministic():
+    """Two iterations of train_ga3c4 and train_drl2 from one seed, twice:
+    the params and the optimizer state must be the same bits."""
+    from gym_collision_avoidance_torch.harness import paths
+    from gym_collision_avoidance_torch.utils import checkpoint as ckpt
+
+    result = {}
+    for name in ("train_ga3c4", "train_drl2"):
+        path = paths.training_path(name)
+        trainer = path.trainer(DEVICE)
+        runs = []
+        for _ in range(2):
+            carry = path.init(trainer)
+            gen = torch.Generator(DEVICE).manual_seed(11)
+            for _ in range(2):
+                *carry, _m = trainer.train_step(*carry, rng=gen)
+            runs.append(ckpt.structure((carry[0], carry[1])))
+        torch.cuda.synchronize()
+        (a, rec_a), (b, rec_b) = runs
+        check(rec_a == rec_b and all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"{name}: two runs from one seed differ")
+        result[name] = {"iterations": 2, "leaves": len(a), "bitwise_equal": True}
+    print(json.dumps({"train_deterministic": result}), flush=True)
+
+
+def phase_kernels_on_training():
+    """K1 on the first TRAIN_CHECK_STEPS rollout steps of every training
+    path, at its own envs and agents, and K2 on train_drl2's (512 beams, an
+    empty static-cell list): each launch's arguments captured and its
+    outputs held bitwise against the plain version on them."""
+    from gym_collision_avoidance_torch.harness import paths
+    from gym_collision_avoidance_torch.ops import pairwise, raymarch
+
+    result = {}
+    for name in TRAIN_ITERS:
+        full = paths.training_path(name)
+        path = full.resized(full.ppo.num_envs, TRAIN_CHECK_STEPS)
+        trainer = path.trainer(DEVICE)
+        params, _, states, counters, obs = path.init(trainer)
+        noise = trainer.sample_noise(torch.Generator(DEVICE).manual_seed(5))
+        k1_calls, k1_outs, k2_calls, k2_outs = [], [], [], []
+        with capture(pairwise, "pairwise_collisions_cuda", k1_calls, k1_outs), \
+                capture(raymarch, "raymarch_cuda", k2_calls, k2_outs):
+            trainer.rollout(params, states, counters, obs, noise)
+        torch.cuda.synchronize()
+        check(len(k1_calls) == TRAIN_CHECK_STEPS,
+              f"{name}: {TRAIN_CHECK_STEPS} rollout steps launched K1 {len(k1_calls)} times")
+        for t, (args, (coll, near)) in enumerate(zip(k1_calls, k1_outs)):
+            hold_k1(pairwise, args, coll, near, f"{name} rollout step {t}")
+        line = {"k1_shape": list(k1_calls[0][0].shape), "k1_steps": len(k1_calls),
+                "k1_bitwise_equal": True,
+                "k1_colliding": int(sum(int(c.sum()) for c, _ in k1_outs))}
+        want_k2 = TRAIN_CHECK_STEPS if name == "train_drl2" else 0
+        check(len(k2_calls) == want_k2, f"{name}: K2 launched {len(k2_calls)} times")
+        for t, (args, out) in enumerate(zip(k2_calls, k2_outs)):
+            cells = args[9]
+            check(cells.shape == (0, 2) and cells.is_cuda, f"static cells {tuple(cells.shape)}")
+            ref = raymarch.raymarch_plain(*args)
+            check(bitwise_equal(out, ref),
+                  f"{name}: rollout step {t}: K2 not bitwise equal to the plain version")
+            hits = int((ref < raymarch.LASER_MAX_RANGE).sum())
+            check(hits > 0, f"{name}: no beam hit anything")
+            line.update({"k2_shape": list(ref.shape), "k2_steps": len(k2_calls),
+                         "static_cells": 0, "k2_bitwise_equal": True, "beams_hit": hits})
+        result[name] = line
+    print(json.dumps({"kernels_on_training": result}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -1038,6 +1420,12 @@ def main():
                                              LASER_STEPS, LASER_DISPATCHES)
     phase_fast_vs_full(states)
     phase_laser_card_vs_cpu()
+    profiler = profiler_module()
+    for name in TRAIN_ITERS:
+        by_path[name] = phase_training(name, kernels, profiler)
+    phase_kernels_on_training()
+    phase_train_card_vs_cpu()
+    phase_train_deterministic()
 
     for k, name, main_path in ((k1, "pairwise", "main"), (k2, "raymarch", "laser_full"),
                                (k3, "laser_fused", "laser_fast")):

@@ -17,7 +17,10 @@ def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; raise if CUDA is asked for and absent.
 
     On the card this also turns TF32 off for matmuls and cuDNN, the GPU's
-    counterpart of the TPU's silent bf16 operand rounding.
+    counterpart of the TPU's silent bf16 operand rounding, and makes cuDNN
+    pick deterministic algorithms without benchmarking, so that serving and
+    training run under one cuDNN configuration and two runs of one seed
+    give the same bits (the trainer's backward convolutions included).
     """
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
@@ -27,6 +30,8 @@ def resolve_device(device=None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     return device
 
 

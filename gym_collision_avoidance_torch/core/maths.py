@@ -48,6 +48,13 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(np.sqrt(a, out=np.empty_like(a)))
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: ``minimum(maximum(x, lo), hi)``, whose
+    gradient at a bound is 0.5, as JAX splits a tie of ``maximum`` or
+    ``minimum`` between its operands (``torch.clamp`` passes 1)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def l2norm(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """sqrt(dx^2 + dy^2), elementwise (envs/util.py:17-21)."""
     return sqrt_rn(dx * dx + dy * dy)

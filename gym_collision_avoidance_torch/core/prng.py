@@ -39,6 +39,12 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
+def key(seed: int, device=None):
+    """``jax.random.PRNGKey(seed)`` as ``[2]`` int64 key words: the high and
+    the low 32 bits of ``seed``."""
+    return torch.tensor([(seed >> 32) & _MASK, seed & _MASK], dtype=torch.int64, device=device)
+
+
 def fold_in(key, data):
     """``jax.random.fold_in``: ``key`` ``[..., 2]`` int64 words, ``data`` an
     integer tensor broadcast against ``key[..., 0]`` (taken modulo 2**32, as

@@ -21,11 +21,29 @@
   beams, the empty 20 x 20 m map, 256 envs, without and with its fast
   route (wedge culling to 9 discs, 12-sample windows, 4 beam slots).
 
+Three training paths, each a published recipe of ``scripts/train_ppo.py``,
+run by the port's PPO trainer (:func:`training_path`):
+
+* ``train_ga3c4``: stage 3 of ``scripts/train_curriculum.sh``, GA3C-CADRL
+  self-play with 4 agents, 256 envs, horizon 64, shaping 0.1, warm-started
+  from ``ppo_selfplay_4agent_curr``;
+* ``train_drl2``: ``RESULTS.md``'s DRL-Long recipe, the CNN against an RVO
+  agent, 1024 envs, horizon 64, lr 1e-3, no entropy bonus, shaping 0.15, 512
+  beams in an agents-only world;
+* ``train_mlp2``: ``README.md``'s example, the MLP (hidden 256) against an RVO
+  agent, 1024 envs, horizon 64.
+
+Each takes the script's default pool: 256 cases of side 4 m, seed 0.
+
 Example::
 
     path = serving_path("cadrl4", device="cuda")
     server = path.server(steps_per_dispatch=64)
     server.dispatch()
+
+    train = training_path("train_drl2")
+    trainer = train.trainer(device="cuda")
+    carry = train.init(trainer)
 """
 
 from __future__ import annotations
@@ -46,8 +64,10 @@ from gym_collision_avoidance_torch.maps import grid
 from gym_collision_avoidance_torch.obs import spec as obs_spec
 from gym_collision_avoidance_torch.policies import registry
 from gym_collision_avoidance_torch.scenarios import presets, random_cases
+from gym_collision_avoidance_torch.train.ppo import PPOConfig, PPOTrainer
 
 PATHS = ("main", "ga3c4", "orca4", "cadrl4", "drl2", "laser_full", "laser_fast")
+TRAIN_PATHS = ("train_ga3c4", "train_drl2", "train_mlp2")
 
 LASER_SENSORS = ("other_agents_states", "laserscan")
 LASER_OBS = ("num_other_agents", "dist_to_goal", "heading_ego_frame", "pref_speed", "radius",
@@ -187,3 +207,61 @@ def mid_episode_states(path: ServingPath, num_envs: int, steps: int, device="cud
     for _ in range(steps):
         state, counter = step(state, counter)[:2]
     return state, int(torch.unique(counter % len(pool)).numel())
+
+
+@functools.lru_cache(maxsize=None)
+def _train_pool(num_agents: int) -> np.ndarray:
+    """``scripts/train_ppo.py``'s default pool: 256 cases, side 4 m, seed 0."""
+    return random_cases.scenario_pool(256, num_agents, seed=0, side_length=4.0)
+
+
+@dataclasses.dataclass
+class TrainingPath:
+    """A PPO recipe: its config, pool and warm-start checkpoint."""
+
+    name: str
+    ppo: PPOConfig
+    pool: np.ndarray
+    init_params: Optional[str] = None     # a models.ga3c_cadrl checkpoint name
+
+    def resized(self, num_envs: int, horizon: int) -> "TrainingPath":
+        """The same recipe at another env count and horizon."""
+        return dataclasses.replace(self, ppo=dataclasses.replace(
+            self.ppo, num_envs=num_envs, horizon=horizon))
+
+    def trainer(self, device="cuda") -> PPOTrainer:
+        return PPOTrainer(self.ppo, pool=self.pool, device=device)
+
+    def init(self, trainer):
+        """``trainer.init_fn``'s carry for the recipe's seed, with the
+        warm-start net in place of the fresh one where the recipe has one."""
+        carry = list(trainer.init_fn(self.ppo.seed))
+        if self.init_params is not None:
+            from gym_collision_avoidance_torch import convert
+            from gym_collision_avoidance_torch.models import ga3c_cadrl
+
+            with np.load(ga3c_cadrl.CHECKPOINTS[self.init_params]) as z:
+                arrays = {k: z[k] for k in z.files}
+            carry[0] = convert.ppo_params_from_numpy(self.ppo.policy_arch, arrays,
+                                                     trainer.device)
+        return carry
+
+
+def training_path(name: str) -> TrainingPath:
+    """The training path ``name`` (one of :data:`TRAIN_PATHS`)."""
+    if name == "train_ga3c4":
+        # scripts/train_curriculum.sh:25-30, stage 3
+        ppo = PPOConfig(num_envs=256, horizon=64, num_agents=4, policy_arch="ga3c",
+                        self_play=True, shaping_coef=0.1)
+        return TrainingPath(name, ppo, _train_pool(4), "ppo_selfplay_4agent_curr")
+    if name == "train_drl2":
+        # RESULTS.md's DRL-Long recipe (drl_long_2agent_rvo_tpu)
+        ppo = PPOConfig(num_envs=1024, horizon=64, num_agents=2, policy_arch="drl_long",
+                        traffic_policy=registry.RVO, lr=1e-3, entropy_coef=0.0,
+                        shaping_coef=0.15)
+        return TrainingPath(name, ppo, _train_pool(2))
+    if name == "train_mlp2":
+        # README.md's train_ppo.py example
+        ppo = PPOConfig(num_envs=1024, horizon=64, num_agents=2, traffic_policy=registry.RVO)
+        return TrainingPath(name, ppo, _train_pool(2))
+    raise ValueError(f"unknown training path {name!r}; one of {TRAIN_PATHS}")

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gym_collision_avoidance_torch.core import maths
 from gym_collision_avoidance_torch.core.device import resolve_device
 
 FRAMES = 3
@@ -120,8 +121,30 @@ def forward_actor_critic(params: DRLLongNet, scan_stack, goal, speed):
     w = torch.tanh(params.actor2(z))
     mean = torch.cat([v, (w + 1.0) * 0.5], dim=-1)
     value = params.critic(z)[:, 0]
-    log_std = torch.clamp(params.log_std, -4.0, 0.0).expand_as(mean)
+    # jnp.clip's gradient: 0.5 at a bound (maths.clip), as the JAX trainer sees it
+    log_std = maths.clip(params.log_std, -4.0, 0.0).expand_as(mean)
     return mean, log_std, value
+
+
+def jax_named_parameters(params: DRLLongNet) -> dict:
+    """``{name: parameter}`` under the JAX package's names (``conv1_w``,
+    ``fc1_b``, ..., ``log_std``).  The dense ``*_w`` tensors are
+    ``nn.Linear``'s ``[out, in]`` weights, the transpose of JAX's
+    ``[in, out]``."""
+    out = {}
+    for layer in ("conv1", "conv2") + _DENSE:
+        module = getattr(params, layer, None)
+        if module is not None:
+            out[f"{layer}_w"], out[f"{layer}_b"] = module.weight, module.bias
+    if hasattr(params, "log_std"):
+        out["log_std"] = params.log_std
+    return out
+
+
+def is_dense_weight(name: str) -> bool:
+    """Whether the JAX package's ``name`` is a dense kernel, which
+    :class:`DRLLongNet` holds transposed."""
+    return name.endswith("_w") and name[:-2] in _DENSE
 
 
 def _init_arrays(laserscan_length: int, seed: int, np_dtype):

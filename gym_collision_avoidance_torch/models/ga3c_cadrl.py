@@ -18,10 +18,15 @@ it as ``params``, as the JAX functions take their dict.  The LSTM is a Python
 loop over the (at most 19) other-agent slots with copy-through at
 ``t >= seq_len``, ``tf.nn.dynamic_rnn``'s ``sequence_length`` semantics.
 
-Normalisation follows the JAX serving step, not its eager call: with the
-weights closed over, XLA folds ``x / std`` into ``x * (1 / std)``, so the port
-multiplies by the reciprocal rounded to the input's dtype.  ``input_avg`` and
-``input_std`` stay float32 whatever the weights' dtype.
+Normalisation follows the compiled JAX step.  Serving closes over the
+weights, and XLA folds ``x / std`` into ``x * (1 / std)``, so the serving form
+multiplies by the reciprocal rounded to the input's dtype.  The JAX PPO
+trainer passes the weights as arguments of its jitted step and trains
+``input_avg`` and ``input_std`` with them, so there the quotient stays a
+division: a net built with ``trainable=True`` (:func:`init_params`, the PPO
+trainer's copy) holds all fourteen tensors as trainable parameters and
+divides.  ``input_avg`` and ``input_std`` stay float32 whatever the weights'
+dtype.
 """
 
 from __future__ import annotations
@@ -85,17 +90,25 @@ class GA3CCADRL(nn.Module):
             parameter dict as numpy arrays).
         dtype: the weights' dtype (float32, float64 or bfloat16); ``None``
             keeps that of ``arrays["lstm_kernel"]``.
+        trainable: the training form: every tensor, ``input_avg`` and
+            ``input_std`` included, is a parameter that requires grad, and
+            the normalisation divides (module docstring).
     """
 
-    def __init__(self, arrays: Mapping[str, np.ndarray], dtype=None):
+    def __init__(self, arrays: Mapping[str, np.ndarray], dtype=None, trainable: bool = False):
         super().__init__()
         if dtype is None:
             dtype = _DTYPES[np.asarray(arrays["lstm_kernel"]).dtype.name]
+        self.trainable = trainable
         for name in WEIGHT_NAMES:
             self.register_parameter(
-                name, nn.Parameter(_as_tensor(arrays[name], dtype), requires_grad=False))
+                name, nn.Parameter(_as_tensor(arrays[name], dtype), requires_grad=trainable))
         for name in NORM_NAMES:
-            self.register_buffer(name, _as_tensor(arrays[name], torch.float32))
+            norm = _as_tensor(arrays[name], torch.float32)
+            if trainable:
+                self.register_parameter(name, nn.Parameter(norm))
+            else:
+                self.register_buffer(name, norm)
 
     @property
     def width(self) -> int:
@@ -128,6 +141,41 @@ def load_params(path: str = "iros18", dtype=torch.float32, device=None) -> GA3CC
     return GA3CCADRL(arrays, dtype).to(device)
 
 
+def init_params(generator: torch.Generator, max_other: int, dtype=torch.float32,
+                device=None) -> GA3CCADRL:
+    """Fresh trainable weights of the checkpoint architecture for
+    ``max_other`` other-agent slots (the JAX package's ``init_params``):
+    Glorot-uniform kernels drawn from ``generator`` (a CPU generator, so a
+    seed gives the same weights on every device), zero biases, heads scaled
+    by 1e-2, and the normalisation built from ``obs.spec.NORM_STATS`` with
+    slot 0 at (0, 1), since the net reads ``num_other_agents`` raw as the
+    LSTM's sequence length.  ``device=None`` means CUDA."""
+    from gym_collision_avoidance_torch.obs import spec as obs_spec
+
+    device = resolve_device(device)
+    om, osd = obs_spec.NORM_STATS["other_agents_states"]
+    avg = np.concatenate([[0.0, 0.0, 0.0, 1.0, 0.5], np.tile(om, max_other)]).astype(np.float32)
+    std = np.concatenate([[1.0, 5.0, 3.14, 1.0, 1.0], np.tile(osd, max_other)]).astype(np.float32)
+
+    def glorot(shape, scale=1.0):
+        s = (6.0 / (shape[0] + shape[1])) ** 0.5
+        w = torch.empty(shape, dtype=torch.float32).uniform_(-s, s, generator=generator)
+        return (w * scale).numpy()
+
+    H4 = 4 * HIDDEN
+    zeros = lambda n: np.zeros((n,), np.float32)  # noqa: E731
+    arrays = {
+        "input_avg": avg, "input_std": std,
+        "lstm_kernel": glorot((7 + HIDDEN, H4)), "lstm_bias": zeros(H4),
+        "layer1_kernel": glorot((4 + HIDDEN, 256)), "layer1_bias": zeros(256),
+        "layer2_kernel": glorot((256, 256)), "layer2_bias": zeros(256),
+        "fc1_kernel": glorot((256, 256)), "fc1_bias": zeros(256),
+        "logits_p_kernel": glorot((256, NUM_ACTIONS), 1e-2), "logits_p_bias": zeros(NUM_ACTIONS),
+        "logits_v_kernel": glorot((256, 1), 1e-2), "logits_v_bias": zeros(1),
+    }
+    return GA3CCADRL(arrays, dtype, trainable=True).to(device)
+
+
 def lstm_cell(params: GA3CCADRL, x_t, c, h):
     """One TF1 ``LSTMCell`` step (forget_bias 1.0, gate order [i, j, f, o])::
 
@@ -153,10 +201,13 @@ def crop_to_width(x, width: int):
     return x
 
 
-def _normalize(x, avg, std, dtype):
-    """``(x - avg) / std`` as the JAX serving step computes it (a product
-    with the reciprocal, in the promoted dtype), cast to ``dtype``."""
+def _normalize(x, avg, std, dtype, divide=False):
+    """``(x - avg) / std`` in the promoted dtype, cast to ``dtype``: a
+    product with the reciprocal as the JAX serving step computes it, or a
+    quotient (``divide``) as its training step does."""
     std = std.to(torch.promote_types(x.dtype, std.dtype))
+    if divide:
+        return ((x - avg) / std).to(dtype)
     return ((x - avg) * torch.reciprocal(std)).to(dtype)
 
 
@@ -175,7 +226,8 @@ def forward(params: GA3CCADRL, x, max_seq_len: int | None = None):
         (probs ``[B, 11]``, value ``[B]``)
     """
     width = params.width
-    xn = _normalize(crop_to_width(x, width), params.input_avg, params.input_std, params.dtype)
+    xn = _normalize(crop_to_width(x, width), params.input_avg, params.input_std, params.dtype,
+                    params.trainable)
     B = xn.shape[0]
     max_other = (width - 5) // 7
     T = max_other if max_seq_len is None else min(max_other, max_seq_len)
@@ -192,8 +244,9 @@ def _parts(params: GA3CCADRL, scalars, others, max_seq_len, sensor_slots):
                          f"(K={K}, sensor_slots={sensor_slots}); use forward()")
     avg_o = params.input_avg[5:].reshape(-1, 7)[:K]
     std_o = params.input_std[5:].reshape(-1, 7)[:K]
-    sn = _normalize(scalars, params.input_avg[:5], params.input_std[:5], params.dtype)
-    on = _normalize(others, avg_o, std_o, params.dtype)
+    sn = _normalize(scalars, params.input_avg[:5], params.input_std[:5], params.dtype,
+                    params.trainable)
+    on = _normalize(others, avg_o, std_o, params.dtype, params.trainable)
     T = K if max_seq_len is None else min(K, max_seq_len)
     return sn[:, 0].to(torch.int32), sn[:, 1:5], on[:, :T]
 

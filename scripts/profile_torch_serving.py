@@ -19,6 +19,12 @@ fprop or cudnn), which may share a name with the first.
 
     python3 scripts/profile_torch_serving.py [--config main] [--num-envs N]
         [--steps 32] [--trace results/serving_trace.json]
+
+``--config train_ga3c4``, ``train_drl2`` or ``train_mlp2`` (the training
+paths of ``harness/paths.py``) traces one PPO iteration after a warm-up one
+instead and reports the same numbers for its rollout, GAE and update apart
+(each a ``torch.profiler`` range of ``PPOTrainer.train_step``, the device
+synchronised at its end), with K1's and K2's launches.
 """
 
 from __future__ import annotations
@@ -35,11 +41,108 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def nvidia_smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def _kernel_shares(kernels, per):
+    """Device ms (divided by ``per``) of the hand-written kernels, the
+    products and the convolutions among ``kernels`` (profiler events)."""
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+
+    def share(*kernel):
+        return sum(t for name, (_, t) in by_name.items()
+                   if any(k in name.lower() for k in kernel)) / 1e3 / per
+
+    def count(kernel):
+        return sum(n for name, (n, _) in by_name.items() if kernel in name.lower())
+
+    return by_name, {
+        "k1_device_ms": share("pairwise_kernel"), "k2_device_ms": share("raymarch_kernel"),
+        "k3_device_ms": share("laser_fused_kernel"),
+        "k1_launches": count("pairwise_kernel") / per, "k2_launches": count("raymarch_kernel") / per,
+        "gemm_device_ms": share("gemm", "xmma", "gemv"),
+        "conv_device_ms": share("conv", "fprop", "dgrad", "wgrad", "cudnn"),
+    }
+
+
+def trace_iteration(trainer, carry, gen, trace=None):
+    """Trace one PPO iteration of ``trainer`` from ``carry`` with noise
+    from ``gen``: wall and device-busy ms, idle share, kernels and the
+    kernel, GEMM and convolution device ms, for the iteration and for each
+    phase.  Returns the report and the next carry."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = trainer.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        *carry, metrics = trainer.train_step(*carry, rng=gen, timings={})
+        sync()
+        wall = time.perf_counter() - t0
+    if trace:
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(trace)
+    events = prof.events()
+    # device events, less the GPU copies of the phases' ranges (annotations)
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("ppo_")]
+    ranges = {e.name[len("ppo_"):]: e.time_range for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("ppo_")}
+    phases = {}
+    for phase, rng in sorted(ranges.items(), key=lambda kv: kv[1].start):
+        inside = [k for k in kernels if rng.start <= k.time_range.start < rng.end]
+        busy_us = sum(k.time_range.elapsed_us() for k in inside)
+        _, shares = _kernel_shares(inside, 1)
+        phases[phase] = {"wall_ms": rng.elapsed_us() / 1e3,
+                         "device_busy_ms": busy_us / 1e3 if inside else "not measured",
+                         "device_idle_share": (1 - busy_us / rng.elapsed_us()) if inside
+                         else "not measured",
+                         "kernels": len(inside), **shares}
+    by_name, shares = _kernel_shares(kernels, 1)
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    ppo = trainer.ppo
+    report = {"device": nvidia_smi() if cuda else "cpu", "num_envs": ppo.num_envs,
+              "horizon": ppo.horizon, "env_steps": ppo.num_envs * ppo.horizon,
+              "wall_ms_per_iteration": 1e3 * wall,
+              "device_busy_ms_per_iteration": busy_us / 1e3 if kernels else "not measured",
+              "device_idle_share": (1 - busy_us / 1e6 / wall) if kernels else "not measured",
+              "kernels_per_iteration": len(kernels), **shares, "phases": phases,
+              "episodes_finished": float(metrics["episodes_finished"]),
+              "top_kernels": [{"name": n[:80], "calls": c, "device_ms": t / 1e3}
+                              for n, (c, t) in top]}
+    return report, carry
+
+
+def profile_training(name: str, trace=None, num_envs=None) -> dict:
+    """:func:`trace_iteration` of the training path ``name`` (at
+    ``num_envs`` envs if given) after one warm-up iteration."""
+    from gym_collision_avoidance_torch.harness import paths
+
+    path = paths.training_path(name)
+    if num_envs:
+        path = path.resized(num_envs, path.ppo.horizon)
+    trainer = path.trainer("cuda")
+    carry = path.init(trainer)
+    gen = torch.Generator("cuda").manual_seed(7)
+    *carry, _ = trainer.train_step(*carry, rng=gen)
+    report, _ = trace_iteration(trainer, carry, gen, trace)
+    return {"config": name, **report}
+
+
 def main():
     from gym_collision_avoidance_torch.harness import paths
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=paths.PATHS, default="main")
+    ap.add_argument("--config", choices=paths.PATHS + paths.TRAIN_PATHS, default="main")
     ap.add_argument("--num-envs", type=int, default=None, help="default: the path's own")
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
@@ -47,6 +150,10 @@ def main():
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
+    if args.config in paths.TRAIN_PATHS:
+        print(json.dumps({"profile_training": profile_training(args.config, args.trace,
+                                                               args.num_envs)}))
+        return 0
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -67,29 +174,17 @@ def main():
 
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    def share(*kernel):
-        return sum(t for name, (_, t) in by_name.items()
-                   if any(k in name.lower() for k in kernel)) / 1e3 / args.steps
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     steps = args.steps
+    by_name, shares = _kernel_shares(kernels, steps)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     print(json.dumps({"profile_serving": {
-        "device": smi, "config": args.config, "num_envs": args.num_envs, "steps": steps,
-        "wall_ms_per_step": 1e3 * wall / steps,
+        "device": nvidia_smi(), "config": args.config, "num_envs": args.num_envs,
+        "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
         "device_busy_ms_per_step": (busy_us / 1e3 / steps) if kernels else "not measured",
         "device_idle_share": (1 - busy_us / 1e6 / wall) if kernels else "not measured",
         "kernels_per_step": len(kernels) / steps,
-        "k1_device_ms_per_step": share("pairwise_kernel"),
-        "k2_device_ms_per_step": share("raymarch_kernel"),
-        "k3_device_ms_per_step": share("laser_fused_kernel"),
-        "gemm_device_ms_per_step": share("gemm", "xmma", "gemv"),
-        "conv_device_ms_per_step": share("conv", "fprop", "cudnn"),
+        **{f"{k[:-3]}_ms_per_step" if k.endswith("_ms") else f"{k}_per_step": v
+           for k, v in shares.items()},
         "top_kernels": [{"name": name[:80], "calls": n, "device_ms": t / 1e3}
                         for name, (n, t) in top],
     }}))

@@ -18,7 +18,8 @@ for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 for name in ("maps.grid", "ops.pairwise", "ops.raymarch", "ops.laser_fused", "ops.build",
              "obs.sensors", "env.step", "harness.serving", "convert", "models.ga3c_cadrl",
              "policies.ga3c", "ops.orca", "policies.rvo", "core.prng", "models.cadrl",
-             "policies.cadrl", "models.drl_long", "policies.drl_long", "harness.paths"):
+             "policies.cadrl", "models.drl_long", "policies.drl_long", "harness.paths",
+             "train.ppo", "train.optim", "utils.checkpoint"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gym_collision_avoidance_tpu"))
@@ -49,6 +50,23 @@ def test_chip_smoke_imports_no_jax():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+def test_training_cli_imports_no_jax():
+    """``scripts/train_ppo_torch.py`` trains an iteration on the CPU without
+    importing jax or the JAX package."""
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import importlib.util, sys\n"
+            "spec = importlib.util.spec_from_file_location('cli', 'scripts/train_ppo_torch.py')\n"
+            "cli = importlib.util.module_from_spec(spec); spec.loader.exec_module(cli)\n"
+            "assert cli.main(['--device', 'cpu', '--iters', '1', '--envs', '4', '--horizon', '2',"
+            " '--pool-cases', '4']) == 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'gym_collision_avoidance_tpu'))\n"
+            "assert not bad, bad\nprint('ok')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo_root, capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
@@ -74,6 +92,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     st = autoreset.state_from_case(cfg, pool, pid, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         runner.rollout(st, cfg, 1)
+
+
+def test_trainer_and_cli_default_to_cuda_and_raise_without_it(no_cuda):
+    from gym_collision_avoidance_torch.train import PPOConfig, make_ppo
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_ppo(PPOConfig(num_envs=4, horizon=2))
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "scripts/train_ppo_torch.py", "--iters", "1"],
+                          cwd=repo_root, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
 
 
 def test_policy_ids_6_and_8_are_ported():
