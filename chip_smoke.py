@@ -55,6 +55,19 @@ CPU's inputs with the same noise (:func:`compare_training`), and two
 iterations of train_ga3c4 and train_drl2 from one seed must give the same
 bits twice.
 
+It runs the evaluation campaign's 4-agent cells (``harness/paths.py``'s
+``SUITE_PATHS``): the 500 frozen cases of CADRL, RVO and GA3C-CADRL-10, each
+as one batch through ``harness/experiments.py:run_batched_episodes`` (K1 once
+a lockstep step), held against the JAX package's per-episode outcomes in
+``tests/data/torch_suite_jax_outcomes.json`` (every outcome equal, step
+counts equal on all but 2% of the episodes), every differing episode
+replayed on the card and the CPU to the step at which the two part.  Two
+controls show that this gate rejects GA3C-CADRL-10 with bf16 weights and
+with TF32 products.  K1's launches in the first 2 steps of every cell of the
+campaign (2, 3 and 4 agents) are held bitwise.  Then it drives the gym env
+(``env/gymapi.py``) on the card against the CPU, K1 held bitwise at
+``[1, A]``.  Each phase prints its seconds.
+
 It checks the fast route against the full pass wherever its exactness guard
 is quiet, and one env step on the card against the same step on the CPU,
 each env on its own pool case: on the main path, on ga3c4, orca4, cadrl4
@@ -1383,6 +1396,304 @@ def phase_kernels_on_training():
     print(json.dumps({"kernels_on_training": result}), flush=True)
 
 
+# --------------------------------------------------------- evaluation suites
+
+SUITE_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                               "torch_suite_jax_outcomes.json")
+SUITE_K1_STEPS = 2     # first steps of each suite cell whose K1 launches are held bitwise
+SUITE_K1_AGENTS = (2, 3, 4)   # the campaign's agent counts (the CLI runs 2 and 3)
+TRAJ_TOL = dict(rtol=1e-5, atol=1e-6)   # where a replayed card trajectory parts from the CPU's
+# 4-agent cells of lower precision that the outcome gate must reject
+SUITE_CONTROLS = {"ga3c4_bf16_weights": ("GA3C-CADRL-10-bf16", False),
+                  "ga3c4_tf32_products": ("GA3C-CADRL-10", True)}
+
+
+def suite_cell(name, device, agents=None):
+    """``(scenarios, cfg, params)`` of the suite cell ``name`` of
+    ``harness/paths.py:SUITE_PATHS`` (at ``agents``, default its 4) with its
+    params on ``device``."""
+    from gym_collision_avoidance_torch.harness import experiments, paths
+
+    return experiments.suite_cell(agents or paths.SUITE_AGENTS, paths.SUITE_PATHS[name],
+                                  paths.SUITE_CASES, device=device)
+
+
+def parting_step(card, cpu):
+    """The first step of ``[T, A, 2]`` trajectories at which the card's
+    positions leave the CPU's by more than ``TRAJ_TOL``, or None."""
+    close = np.isclose(card, cpu, **TRAJ_TOL).all(axis=(1, 2))
+    return None if close.all() else int(np.argmin(close))
+
+
+def replay_differing(name, cases, ref, full, why="outcome differs from JAX"):
+    """Replay the ``cases`` of ``name`` (those whose outcome differs from the
+    JAX reference) as their own batch, on the card and on the port's CPU,
+    with trajectories; the step at which the card's positions part from the
+    CPU's.  An episode that parts at step 0 or 1 is a fault of the port."""
+    from gym_collision_avoidance_torch.harness import experiments
+
+    out, runs = [], {}
+    for device in (DEVICE, "cpu"):
+        scenarios, cfg, params = suite_cell(name, device)
+        runs[device] = experiments.run_batched_episodes(
+            [scenarios[i] for i in cases], cfg, params, collect_trajectories=True,
+            device=device)
+    (card, card_traj), (cpu, cpu_traj) = runs[DEVICE], runs["cpu"]
+    for j, case in enumerate(cases):
+        T = max(card[j]["steps"], cpu[j]["steps"])
+        part = parting_step(card_traj[:T, j], cpu_traj[:T, j])
+        out.append({"case": case, "why": why, "jax": ref["outcome"][case],
+                    "card": full[case]["outcome"],
+                    "card_replayed": card[j]["outcome"], "cpu": cpu[j]["outcome"],
+                    "steps": {"jax": ref["steps"][case], "card": full[case]["steps"],
+                              "cpu": cpu[j]["steps"]},
+                    "card_vs_cpu_parting_step": part})
+    print(json.dumps({f"{name}_replayed_episodes": out}), flush=True)
+    for row in out:
+        check(row["card_vs_cpu_parting_step"] is None or row["card_vs_cpu_parting_step"] > 1,
+              f"{name}: case {row['case']} parts from the CPU at step "
+              f"{row['card_vs_cpu_parting_step']}: a fault of the port")
+    return out
+
+
+def phase_suite_4agent(kernels):
+    """The 500 frozen 4-agent cases of each suite cell as one batch on the
+    card (``run_episode_batch``, chunks of 128 steps): K1 once a lockstep
+    step and no laser kernel, finite stats, and each cell held against the
+    JAX package's per-episode outcomes (``SUITE_REFERENCE``) by
+    ``experiments.compare_outcomes``: every outcome equal, step counts equal
+    on all but 2% of the episodes; every differing episode replayed
+    (:func:`replay_differing`)."""
+    from gym_collision_avoidance_torch.harness import experiments, paths
+
+    reference = experiments.load_outcome_records(SUITE_REFERENCE)
+    by_cell, failed = {}, []
+    for name, policy in paths.SUITE_PATHS.items():
+        scenarios, cfg, params = suite_cell(name, DEVICE)
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.LAUNCHES = 0
+        t0 = time.perf_counter()
+        run = experiments.run_episode_batch(scenarios, cfg, params, device=DEVICE)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: k.LAUNCHES for n, k in kernels.items()}
+        stats, steps = run.stats, run.lockstep_steps
+        check(launches["pairwise"] == steps,
+              f"{name}: K1 launched {launches['pairwise']} times in {steps} steps")
+        check(launches["raymarch"] == 0 and launches["laser_fused"] == 0,
+              f"{name}: a laser kernel launched")
+        for s in stats:
+            check(all(np.isfinite(np.asarray(s[k], np.float64)).all()
+                      for k in ("total_reward", "time_to_goal", "extra_time_to_goal")),
+                  f"{name}: non-finite episode stats")
+        record = experiments.cell_record(paths.SUITE_AGENTS, policy, stats)
+        ref = reference[(paths.SUITE_AGENTS, policy)]
+        cmp = experiments.compare_outcomes(ref, record)
+        line = {"policy": policy, "agents": paths.SUITE_AGENTS, "episodes": len(stats),
+                "seconds": seconds, "lockstep_steps": steps,
+                "episodes_per_s": len(stats) / seconds,
+                "env_steps_per_s": len(stats) * steps / seconds,
+                "ms_per_step": 1e3 * seconds / steps, "launches": launches,
+                "summary": record["summary"], "jax_summary": ref["summary"],
+                "outcome_agreement": cmp["outcome_agreement"],
+                "steps_apart_cases": cmp["steps_apart_cases"],
+                "pct_points_apart": cmp["pct_points_apart"],
+                "differing_cases": cmp["differing_cases"]}
+        print(json.dumps({name: line}), flush=True)
+        if cmp["differing_cases"]:
+            replay_differing(name, cmp["differing_cases"], ref, stats)
+        else:
+            # nothing differs: replay the two longest episodes, so the check
+            # runs and says how long the card follows the CPU
+            longest = sorted(range(len(stats)), key=lambda i: -stats[i]["steps"])[:2]
+            replay_differing(name, sorted(longest), ref, stats, why="longest, none differs")
+        if not cmp["ok"]:
+            failed.append(name)
+        by_cell[name] = launches
+    check(not failed, f"{failed}: outcomes disagree with the JAX reference beyond "
+          f"{experiments.MAX_OUTCOMES_APART} outcomes and "
+          f"{experiments.MAX_STEPS_APART_SHARE:.0%} of the step counts")
+    return by_cell
+
+
+@contextlib.contextmanager
+def tf32_env_steps(experiments):
+    """TF32 matmuls inside every ``env_step`` of ``run_episode_batch`` (the
+    entry points turn TF32 off when they set up)."""
+    orig = experiments.env_step
+
+    def step(*args):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        return orig(*args)
+
+    experiments.env_step = step
+    try:
+        yield
+    finally:
+        experiments.env_step = orig
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_suite_controls():
+    """The outcome gate of ``phase_suite_4agent`` must reject GA3C-CADRL-10
+    computing below float32: with bf16 weights (the registry's
+    ``GA3C-CADRL-10-bf16``) and with TF32 products, each over the 500 frozen
+    4-agent cases against the float32 JAX reference."""
+    from gym_collision_avoidance_torch.harness import experiments, paths
+
+    reference = experiments.load_outcome_records(SUITE_REFERENCE)
+    ref = reference[(paths.SUITE_AGENTS, "GA3C-CADRL-10")]
+    result = {}
+    for name, (policy, tf32) in SUITE_CONTROLS.items():
+        scenarios, cfg, params = experiments.suite_cell(paths.SUITE_AGENTS, policy,
+                                                        paths.SUITE_CASES, device=DEVICE)
+        with tf32_env_steps(experiments) if tf32 else contextlib.nullcontext():
+            run = experiments.run_episode_batch(scenarios, cfg, params, device=DEVICE)
+        check(not torch.backends.cuda.matmul.allow_tf32, "TF32 left on")
+        record = experiments.cell_record(paths.SUITE_AGENTS, policy, run.stats)
+        cmp = experiments.compare_outcomes(ref, record)
+        result[name] = {"policy": policy, "tf32": tf32, "summary": record["summary"],
+                        "outcomes_apart": len(cmp["differing_cases"]),
+                        "steps_apart": len(cmp["steps_apart_cases"]),
+                        "pct_points_apart": cmp["pct_points_apart"],
+                        "rejected": not cmp["ok"]}
+    print(json.dumps({"suite_controls": result}), flush=True)
+    for name, line in result.items():
+        check(line["rejected"], f"{name}: the outcome gate passed a cell below float32")
+
+
+def phase_suite_k1():
+    """K1's launches in the first SUITE_K1_STEPS steps of every suite cell
+    the campaign runs (500 cases at 2, 3 and 4 agents, each policy), held
+    bitwise against the plain version."""
+    from gym_collision_avoidance_torch.harness import experiments, paths
+    from gym_collision_avoidance_torch.ops import pairwise
+
+    result = {}
+    for agents in SUITE_K1_AGENTS:
+        for name in paths.SUITE_PATHS:
+            scenarios, cfg, params = suite_cell(name, DEVICE, agents)
+            calls, outs = [], []
+            with capture(pairwise, "pairwise_collisions_cuda", calls, outs):
+                experiments.run_episode_batch(scenarios, cfg, params,
+                                              chunk_steps=SUITE_K1_STEPS,
+                                              max_steps=SUITE_K1_STEPS, device=DEVICE)
+            torch.cuda.synchronize()
+            cell = f"{paths.SUITE_PATHS[name]} at {agents} agents"
+            check(len(calls) == SUITE_K1_STEPS,
+                  f"{cell}: {SUITE_K1_STEPS} steps launched K1 {len(calls)} times")
+            for t, (args, (coll, near)) in enumerate(zip(calls, outs)):
+                hold_k1(pairwise, args, coll, near, f"{cell} step {t}")
+            shape = list(calls[0][0].shape)
+            check(shape == [paths.SUITE_CASES, agents, 2], f"{cell}: K1 ran at {shape}")
+            result[cell] = {"k1_shape": shape, "k1_steps": len(calls),
+                            "k1_bitwise_equal": True}
+    print(json.dumps({"suite_k1": result}), flush=True)
+
+
+def env_step_outputs(env, obs, rewards, game_over):
+    """The gym env's last step as ``compare_steps`` takes it: its ``[1, A]``
+    state, the host obs stacked back to ``[1, A, ...]`` tensors, rewards,
+    game over and no info."""
+    keys = obs[0].keys()
+    stacked = {k: torch.as_tensor(np.stack([obs[i][k] for i in sorted(obs)]))[None]
+               for k in keys}
+    return (env.state.to("cpu"), stacked, torch.as_tensor(rewards)[None],
+            torch.as_tensor([game_over]), {})
+
+
+def gym_episode(label, make_env, max_steps):
+    """One episode of the gym env on the card and on the CPU.  Step by step
+    from the CPU's state, the card's step is held against the CPU's at the
+    serving tolerances with the goal frame's slack, and K1's launch in the
+    first card step bitwise against its plain version; run freely, both end
+    at the same step with the same outcome."""
+    from gym_collision_avoidance_torch.ops import pairwise
+
+    envs = {d: make_env(d) for d in (DEVICE, "cpu")}
+    for env in envs.values():
+        env.reset()
+    card, cpu = envs[DEVICE], envs["cpu"]
+    worst, slackened = 0.0, 0
+    calls, outs = [], []
+    for step in range(1, max_steps + 1):
+        card.state = cpu.state.to(DEVICE)
+        want = env_step_outputs(cpu, *cpu.step()[:3])
+        with capture(pairwise, "pairwise_collisions_cuda", calls, outs) if step == 1 \
+                else contextlib.nullcontext():
+            got = env_step_outputs(card, *card.step()[:3])
+        slack, _turn, _apart = goal_frame_slack(want, got)
+        w, n, _, _ = compare_steps(f"gymapi {label} step {step}", want, got, 1e-5, 1e-6,
+                                   slack=slack)
+        worst, slackened = max(worst, w), slackened + n
+        if bool(want[3][0]):
+            break
+    check(bool(want[3][0]), f"gymapi {label}: no game over in {max_steps} steps")
+    check(len(calls) == 1, f"gymapi {label}: the first step launched K1 {len(calls)} times")
+    hold_k1(pairwise, calls[0], *outs[0], f"gymapi {label} step 1")
+    k1_shape = list(calls[0][0].shape)
+    A = card.state.pos.shape[1]
+    check(k1_shape == [1, A, 2], f"gymapi {label}: K1 ran at {k1_shape}")
+    free = {}
+    for device, env in envs.items():
+        env.reset()
+        for n in range(1, max_steps + 1):
+            if env.step()[2]:
+                break
+        free[device] = (n, [(a.in_collision, a.is_at_goal) for a in env.agents],
+                        env.state.pos.cpu())
+    check(free[DEVICE][:2] == free["cpu"][:2],
+          f"gymapi {label}: free runs end apart: card {free[DEVICE][:2]}, cpu {free['cpu'][:2]}")
+    return {"lockstep_steps": step, "max_abs_err": worst, "k1_shape": k1_shape,
+            "k1_bitwise_equal": True,
+            "entries_within_frame_slack_only": slackened, "free_run_steps": free["cpu"][0],
+            "free_run_max_pos_diff": max_abs_err(free[DEVICE][2], free["cpu"][2])}
+
+
+def phase_gymapi():
+    """``CollisionAvoidanceEnv(device="cuda")`` against ``device="cpu"``:
+    NonCoop on ``two_agents_swap`` and GA3C-CADRL-10 on the 4-agent circle
+    case, and ``apply_external_states`` on 2 EXTERNAL-dynamics agents (the
+    velocity a true division by dt on both devices, so equal bits)."""
+    from gym_collision_avoidance_torch import EnvConfig
+    from gym_collision_avoidance_torch.core import dynamics as dyn
+    from gym_collision_avoidance_torch.core.state import apply_external_states
+    from gym_collision_avoidance_torch.env.gymapi import CollisionAvoidanceEnv
+    from gym_collision_avoidance_torch.harness import registry as hreg
+    from gym_collision_avoidance_torch.scenarios import presets, suites
+
+    cfg = EnvConfig.evaluate(dtype="float32")
+    ga3c_cfg = hreg.cfg_for_policy("GA3C-CADRL-10", cfg)
+    circle = presets.from_cadrl_case(suites.gen_circle_test_case(4, 4.0), policy="GA3C_CADRL")
+    result = {
+        "noncoop_swap": gym_episode("noncoop_swap", lambda d: CollisionAvoidanceEnv(
+            cfg=cfg, scenario=presets.two_agents_swap(), device=d), 300),
+        "ga3c_circle4": gym_episode("ga3c_circle4", lambda d: CollisionAvoidanceEnv(
+            cfg=ga3c_cfg, scenario=circle, device=d,
+            params=hreg.load_params("ga3c_cadrl", device=d)), 400),
+    }
+    sc = presets.two_agents_swap(policy="external")
+    sc.dynamics_id = np.full(2, dyn.EXTERNAL, np.int32)
+    states = {}
+    for device in (DEVICE, "cpu"):
+        st = sc.to_state(cfg, device=device)
+        st = apply_external_states(st, cfg, sc.pos[None] + 0.25)
+        st = st.replace(step_num=torch.ones_like(st.step_num))
+        states[device] = apply_external_states(st, cfg, sc.pos[None] + np.array([0.4, -0.1]))
+    card, cpu = states[DEVICE].to("cpu"), states["cpu"]
+    for leaf in ("pos", "vel", "speed"):
+        check(bitwise_equal(getattr(card, leaf), getattr(cpu, leaf)),
+              f"apply_external_states: {leaf} differs between card and CPU")
+    check(bool((cpu.vel != 0).all()), "apply_external_states: no velocity interpolated")
+    result["apply_external_states"] = {
+        "pos_vel_speed_bitwise_equal": True,
+        "heading_max_abs_err": max_abs_err(card.heading, cpu.heading)}
+    check(result["apply_external_states"]["heading_max_abs_err"] <= 1e-6,
+          "apply_external_states: headings differ")
+    print(json.dumps({"gymapi": result}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -1395,37 +1706,49 @@ def main():
           f"{torch.cuda.device_count()} visible", flush=True)
     kernels = {"pairwise": pairwise, "raymarch": raymarch, "laser_fused": laser_fused}
 
-    phase_build(build)
-    k1 = phase_kernels(pairwise)
-    k2 = phase_k2()
-    k3 = phase_k3()
+    def run(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        print(json.dumps({"phase_seconds": {name: time.perf_counter() - t0}}), flush=True)
+        return out
+
+    run("build", phase_build, build)
+    k1 = run("kernels_k1", phase_kernels, pairwise)
+    k2 = run("kernels_k2", phase_k2)
+    k3 = run("kernels_k3", phase_k3)
     for k in (k2, k3):
         k["launch_floor_ms"] = k1["launch_floor_ms"]
     by_path = {}
     for name, label in (("main", "serving"), ("ga3c4", "ga3c4_serving"),
                         ("orca4", "orca4_serving")):
-        by_path[name], _ = phase_serving(label, kernels, serving_path(name))
+        by_path[name], _ = run(label, phase_serving, label, kernels, serving_path(name))
     for name in ("cadrl4", "drl2"):
-        by_path[name], _ = phase_serving(f"{name}_serving", kernels, serving_path(name),
-                                         laser="raymarch" if name == "drl2" else None,
-                                         steps=POLICY_STEPS, dispatches=POLICY_DISPATCHES)
-    phase_card_vs_cpu()
-    phase_policy_card_vs_cpu()
-    phase_networks()
-    by_path["laser_full"], states = phase_serving("laser_serving_full", kernels,
-                                                  serving_path("laser_full"), "raymarch",
-                                                  LASER_STEPS, LASER_DISPATCHES)
-    by_path["laser_fast"], _ = phase_serving("laser_serving_fast", kernels,
-                                             serving_path("laser_fast"), "laser_fused",
-                                             LASER_STEPS, LASER_DISPATCHES)
-    phase_fast_vs_full(states)
-    phase_laser_card_vs_cpu()
+        by_path[name], _ = run(f"{name}_serving", phase_serving, f"{name}_serving", kernels,
+                               serving_path(name),
+                               laser="raymarch" if name == "drl2" else None,
+                               steps=POLICY_STEPS, dispatches=POLICY_DISPATCHES)
+    run("card_vs_cpu", phase_card_vs_cpu)
+    run("policy_card_vs_cpu", phase_policy_card_vs_cpu)
+    run("networks", phase_networks)
+    by_path["laser_full"], states = run("laser_serving_full", phase_serving,
+                                        "laser_serving_full", kernels,
+                                        serving_path("laser_full"), "raymarch",
+                                        LASER_STEPS, LASER_DISPATCHES)
+    by_path["laser_fast"], _ = run("laser_serving_fast", phase_serving, "laser_serving_fast",
+                                   kernels, serving_path("laser_fast"), "laser_fused",
+                                   LASER_STEPS, LASER_DISPATCHES)
+    run("fast_vs_full", phase_fast_vs_full, states)
+    run("laser_card_vs_cpu", phase_laser_card_vs_cpu)
     profiler = profiler_module()
     for name in TRAIN_ITERS:
-        by_path[name] = phase_training(name, kernels, profiler)
-    phase_kernels_on_training()
-    phase_train_card_vs_cpu()
-    phase_train_deterministic()
+        by_path[name] = run(name, phase_training, name, kernels, profiler)
+    run("kernels_on_training", phase_kernels_on_training)
+    run("train_card_vs_cpu", phase_train_card_vs_cpu)
+    run("train_deterministic", phase_train_deterministic)
+    by_path.update(run("suite_4agent", phase_suite_4agent, kernels))
+    run("suite_controls", phase_suite_controls)
+    run("suite_k1", phase_suite_k1)
+    run("gymapi", phase_gymapi)
 
     for k, name, main_path in ((k1, "pairwise", "main"), (k2, "raymarch", "laser_full"),
                                (k3, "laser_fused", "laser_fast")):

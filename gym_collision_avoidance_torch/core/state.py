@@ -17,7 +17,8 @@ import torch
 from gym_collision_avoidance_torch.config import EnvConfig
 from gym_collision_avoidance_torch.core import dynamics as dyn
 from gym_collision_avoidance_torch.core import maths
-from gym_collision_avoidance_torch.core.device import resolve_device, torch_dtype
+from gym_collision_avoidance_torch.core.device import (as_device_tensor, resolve_device,
+                                                        torch_dtype)
 
 # Number of past actions / velocities remembered per agent
 # (reference: envs/agent.py:38 `num_actions_to_store = 2`).
@@ -210,6 +211,46 @@ def init_state(
 
 def apply_external_states(state: EnvState, cfg: EnvConfig, pos, vel=None, heading=None,
                           mask=None) -> EnvState:
-    """Inject externally measured states (``Agent.set_state``,
-    envs/agent.py:155-190).  Not ported yet."""
-    raise NotImplementedError(f"apply_external_states: {maths.STRICT_PARITY_ITEM}")
+    """Inject externally measured states (a real robot, a simulator), as
+    ``Agent.set_state`` does (envs/agent.py:155-190): a missing velocity is
+    the position change over ``cfg.dt`` (zero at ``step_num`` 0), a missing
+    heading the velocity's direction; the heading change is wrapped.
+
+    Args:
+        pos: ``[E, A, 2]`` positions; ``vel`` ``[E, A, 2]`` and ``heading``
+            ``[E, A]`` optional.
+        mask: ``[E, A]`` bool, the agents to update (default: the agents
+            with EXTERNAL dynamics).
+
+    The JAX function has no jitted caller, so its quotient by ``dt`` is a
+    true division; the port divides by a 0-dim tensor, which CUDA does not
+    rewrite as a product with the reciprocal.
+    """
+    dtype, device = state.pos.dtype, state.pos.device
+    pos = as_device_tensor(pos, dtype, device).expand_as(state.pos)
+    if mask is None:
+        mask = state.dynamics_id == dyn.EXTERNAL
+    else:
+        mask = as_device_tensor(mask, torch.bool, device).expand(state.pos.shape[:-1])
+    if vel is None:
+        interp = (pos - state.pos) / torch.tensor(cfg.dt, dtype=dtype, device=device)
+        vel = torch.where((state.step_num == 0)[..., None], torch.zeros_like(interp), interp)
+    else:
+        vel = as_device_tensor(vel, dtype, device).expand_as(state.vel)
+    if heading is None:
+        heading = torch.atan2(vel[..., 1], vel[..., 0])
+    else:
+        heading = as_device_tensor(heading, dtype, device).expand_as(state.heading)
+    delta_heading = maths.wrap(heading - state.heading)
+    speed = maths.norm2(vel)
+
+    def sel(new, old):
+        return torch.where(mask.reshape(mask.shape + (1,) * (old.dim() - mask.dim())), new, old)
+
+    return state.replace(
+        pos=sel(pos, state.pos),
+        vel=sel(vel, state.vel),
+        speed=sel(speed, state.speed),
+        heading=sel(heading, state.heading),
+        delta_heading=sel(delta_heading, state.delta_heading),
+    )

@@ -68,6 +68,10 @@ from gym_collision_avoidance_torch.train.ppo import PPOConfig, PPOTrainer
 
 PATHS = ("main", "ga3c4", "orca4", "cadrl4", "drl2", "laser_full", "laser_fast")
 TRAIN_PATHS = ("train_ga3c4", "train_drl2", "train_mlp2")
+# The evaluation campaign's 4-agent cells (harness/experiments.py:run_suite_cell:
+# the 500 frozen cases, float32, EnvConfig.evaluate): name -> policy.
+SUITE_PATHS = {"suite_cadrl4": "CADRL", "suite_rvo4": "RVO", "suite_ga3c4": "GA3C-CADRL-10"}
+SUITE_AGENTS, SUITE_CASES = 4, 500
 
 LASER_SENSORS = ("other_agents_states", "laserscan")
 LASER_OBS = ("num_other_agents", "dist_to_goal", "heading_ego_frame", "pref_speed", "radius",

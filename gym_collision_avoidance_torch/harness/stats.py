@@ -22,3 +22,10 @@ def outcome_flags(in_collision, is_at_goal, valid=None):
     at_g = is_at_goal & valid
     return (torch.any(in_c, dim=-1), torch.all(at_g | ~valid, dim=-1),
             torch.any(~in_c & ~at_g & valid, dim=-1))
+
+
+def outcome_str(collision, all_at_goal) -> str:
+    """The reference's outcome priority (env_utils.py:71-73): "collision",
+    else "all_at_goal", else "stuck"."""
+    return ("collision" if bool(collision)
+            else "all_at_goal" if bool(all_at_goal) else "stuck")

@@ -55,11 +55,11 @@ NORM_NAMES = ("input_avg", "input_std")
 
 _WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights")
 
-# The checkpoints the JAX package ships (same names).  This package copies
-# two of them into models/weights/: the default "iros18" (input width 138,
-# 19 other-agent slots, the reference's GA3C-CADRL-10 net) and
-# "ppo_selfplay_4agent_curr" (width 26, 3 slots).  The others are listed so
-# that a config naming one fails on a missing file, not an unknown name.
+# The checkpoints the JAX package ships (same names), byte copies in
+# models/weights/: the default "iros18" (input width 138, 19 other-agent
+# slots, the reference's GA3C-CADRL-10 net), the two 2019 runs (width 138)
+# and the PPO self-play nets (width 26, 3 slots) that harness/registry.py
+# names.
 CHECKPOINTS = {
     name: os.path.join(_WEIGHTS_DIR, f"{name}.npz" if name.startswith("ppo") else
                        f"ga3c_cadrl_{name}.npz")

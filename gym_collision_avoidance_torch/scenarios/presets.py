@@ -140,6 +140,19 @@ def two_agents_swap(policy="noncoop") -> Scenario:
     return sc
 
 
+def preset_two_agent_cases() -> list[np.ndarray]:
+    """The hard-coded 2-agent small suite (envs/test_cases.py:637-700)."""
+    s2 = 3.0 / 1.4
+    return [
+        np.array([[-3.0, 0.0, 3.0, 0.0, 1.0, 0.3], [3.0, 0.0, -3.0, 0.0, 1.0, 0.3]]),
+        np.array([[-3.0, 0.0, 3.0, 0.0, 1.0, 0.3], [s2, -s2, -s2, s2, 1.0, 0.3]]),
+        np.array([[-2.0, -1.5, 2.0, 1.5, 1.0, 0.5], [-2.0, 1.5, 2.0, -1.5, 1.0, 0.5]]),
+        np.array([[-3.0, 0.0, 3.0, 0.0, 1.0, 0.5], [0.0, -3.0, 0.0, 3.0, 1.0, 0.5]]),
+        np.array([[-2.5, 0.0, 2.5, 0.0, 1.0, 0.3], [2.5, 0.0, -2.5, 0.0, 0.8, 0.4]]),
+        np.array([[-3.0, 0.0, 3.0, 0.0, 0.6, 0.5], [s2, -s2, -s2, s2, 1.0, 0.4]]),
+    ]
+
+
 def circle_scenario(num_agents: int, radius: float = None, agent_radius: float = 0.5,
                     pref_speed: float = 1.0, policy: str = "noncoop") -> Scenario:
     """Antipodal circle config (``gen_circle_test_case``,

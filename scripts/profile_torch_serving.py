@@ -25,6 +25,13 @@ paths of ``harness/paths.py``) traces one PPO iteration after a warm-up one
 instead and reports the same numbers for its rollout, GAE and update apart
 (each a ``torch.profiler`` range of ``PPOTrainer.train_step``, the device
 synchronised at its end), with K1's and K2's launches.
+
+``--config suite_cadrl4``, ``suite_rvo4`` or ``suite_ga3c4`` (the evaluation
+campaign's 4-agent cells, ``harness/paths.py:SUITE_PATHS``) traces the first
+chunk of ``--steps`` lockstep steps (default 128) of
+``harness/experiments.py:run_batched_episodes`` over the 500 frozen cases,
+after the same chunk run once untraced, and reports the same per-step numbers
+(the chunk's state set-up and its one copy to the host included).
 """
 
 from __future__ import annotations
@@ -138,18 +145,67 @@ def profile_training(name: str, trace=None, num_envs=None) -> dict:
     return {"config": name, **report}
 
 
+def profile_suite(name: str, steps: int, trace=None) -> dict:
+    """One traced chunk of ``steps`` lockstep steps of the suite cell
+    ``name`` after an untraced one: wall and device ms per step, idle share,
+    kernels per step and the K1 and GEMM shares."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gym_collision_avoidance_torch.harness import experiments, paths
+
+    policy = paths.SUITE_PATHS[name]
+    scenarios, cfg, params = experiments.suite_cell(paths.SUITE_AGENTS, policy,
+                                                    paths.SUITE_CASES, device="cuda")
+
+    def chunk():
+        return experiments.run_batched_episodes(scenarios, cfg, params, chunk_steps=steps,
+                                                max_steps=steps, device="cuda")
+
+    chunk()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if trace:
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(trace)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name, shares = _kernel_shares(kernels, steps)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"device": nvidia_smi(), "config": name, "policy": policy,
+            "num_envs": len(scenarios), "agents": paths.SUITE_AGENTS, "steps": steps,
+            "wall_ms_per_step": 1e3 * wall / steps,
+            "device_busy_ms_per_step": (busy_us / 1e3 / steps) if kernels else "not measured",
+            "device_idle_share": (1 - busy_us / 1e6 / wall) if kernels else "not measured",
+            "kernels_per_step": len(kernels) / steps,
+            **{f"{k[:-3]}_ms_per_step" if k.endswith("_ms") else f"{k}_per_step": v
+               for k, v in shares.items()},
+            "top_kernels": [{"name": n[:80], "calls": c, "device_ms": t / 1e3}
+                            for n, (c, t) in top]}
+
+
 def main():
     from gym_collision_avoidance_torch.harness import paths
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=paths.PATHS + paths.TRAIN_PATHS, default="main")
+    ap.add_argument("--config", choices=paths.PATHS + paths.TRAIN_PATHS + tuple(paths.SUITE_PATHS),
+                    default="main")
     ap.add_argument("--num-envs", type=int, default=None, help="default: the path's own")
-    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="steps traced (default 32; 128, one chunk, for the suite cells)")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
+    if args.config in paths.SUITE_PATHS:
+        print(json.dumps({"profile_suite": profile_suite(args.config, args.steps or 128,
+                                                         args.trace)}))
+        return 0
+    args.steps = args.steps or 32
     if args.config in paths.TRAIN_PATHS:
         print(json.dumps({"profile_training": profile_training(args.config, args.trace,
                                                                args.num_envs)}))

@@ -19,7 +19,9 @@ for name in ("maps.grid", "ops.pairwise", "ops.raymarch", "ops.laser_fused", "op
              "obs.sensors", "env.step", "harness.serving", "convert", "models.ga3c_cadrl",
              "policies.ga3c", "ops.orca", "policies.rvo", "core.prng", "models.cadrl",
              "policies.cadrl", "models.drl_long", "policies.drl_long", "harness.paths",
-             "train.ppo", "train.optim", "utils.checkpoint"):
+             "train.ppo", "train.optim", "utils.checkpoint", "scenarios.suites",
+             "harness.experiments", "harness.registry", "harness.datasets",
+             "harness.visualize", "env.gymapi", "obs.wrappers"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gym_collision_avoidance_tpu"))
@@ -64,6 +66,53 @@ def test_training_cli_imports_no_jax():
             "assert not bad, bad\nprint('ok')")
     proc = subprocess.run([sys.executable, "-c", code], cwd=repo_root, capture_output=True,
                           text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
+_WITHOUT_OPTIONAL = """
+import importlib, importlib.util, pkgutil, sys, tempfile
+
+BLOCKED = ("pandas", "matplotlib", "imageio", "gymnasium")
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import gym_collision_avoidance_torch as pkg
+for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(mod.name)
+from gym_collision_avoidance_torch.env import gymapi
+assert gymapi.CollisionAvoidanceEnv.__mro__[1] is object
+import chip_smoke
+spec = importlib.util.spec_from_file_location("cli", "scripts/run_full_test_suite_torch.py")
+cli = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cli)
+with tempfile.TemporaryDirectory() as out:
+    assert cli.main(["--device", "cpu", "--agents", "2", "--policies", "RVO", "--cases", "3",
+                     "--out", out]) == 0
+    assert cli.main(["--device", "cpu", "--agents", "2", "--policies", "RVO", "--cases", "3",
+                     "--out", out, "--record-pickles"]) == 2
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "gym_collision_avoidance_tpu") + BLOCKED)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_port_imports_without_pandas_matplotlib_imageio_gymnasium():
+    """The card's machine has none of the four: every module of the port,
+    ``chip_smoke.py`` and ``scripts/run_full_test_suite_torch.py`` import
+    with them blocked, the CLI runs a tiny campaign on the CPU (and refuses
+    ``--record-pickles``), and nothing imports jax."""
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _WITHOUT_OPTIONAL], cwd=repo_root,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
 
 
@@ -139,3 +188,24 @@ def test_ga3c_weights_load_without_cuda_only_on_request(no_cuda):
         ga3c_cadrl.load_params()
     net = ga3c_cadrl.load_params("ppo_selfplay_4agent_curr", device="cpu")
     assert net.width == 26 and net.lstm_kernel.device.type == "cpu"
+
+
+def test_harness_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from gym_collision_avoidance_torch import EnvConfig
+    from gym_collision_avoidance_torch.env.gymapi import CollisionAvoidanceEnv
+    from gym_collision_avoidance_torch.harness import datasets, experiments, registry
+
+    cfg = EnvConfig.evaluate(dtype="float32")
+    scenarios = experiments.suite_scenarios(2, "RVO", 2)
+    for call in (lambda: experiments.run_batched_episodes(scenarios, cfg),
+                 lambda: experiments.run_suite_cell(2, "RVO", 2),
+                 lambda: registry.load_params("ga3c_cadrl"),
+                 lambda: CollisionAvoidanceEnv(cfg=cfg),
+                 lambda: datasets.collect_trajectory_dataset(1)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "scripts/run_full_test_suite_torch.py", "--cases", "2",
+                           "--agents", "2", "--policies", "RVO", "--out", "/nonexistent/x"],
+                          cwd=repo_root, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "CUDA is not available" in proc.stderr

@@ -189,8 +189,13 @@ def test_unported_pieces_raise():
     cfg = TCfg(dtype="float64")
     st = tstate.init_state(cfg, np.zeros((1, 2, 2)), np.ones((1, 2, 2)),
                            np.full((1, 2), 0.3), np.ones((1, 2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tstate.apply_external_states(st, cfg, np.zeros((1, 2, 2)))
+    # apply_external_states is ported (tests/test_torch_harness.py holds it
+    # against JAX); by default it moves only EXTERNAL-dynamics agents
+    moved = tstate.apply_external_states(st, cfg, np.full((1, 2, 2), 0.5))
+    assert torch.equal(moved.pos, st.pos)
+    moved = tstate.apply_external_states(st, cfg, np.full((1, 2, 2), 0.5),
+                                         mask=np.array([[True, False]]))
+    assert moved.pos[0, 0].tolist() == [0.5, 0.5] and moved.pos[0, 1].tolist() == [0.0, 0.0]
     with pytest.raises(NotImplementedError, match="item 2"):
         tstate.init_state(cfg.replace(strict_parity=True), np.zeros((1, 2, 2)),
                           np.ones((1, 2, 2)), np.full((1, 2), 0.3), np.ones((1, 2)),
