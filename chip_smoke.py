@@ -66,7 +66,14 @@ controls show that this gate rejects GA3C-CADRL-10 with bf16 weights and
 with TF32 products.  K1's launches in the first 2 steps of every cell of the
 campaign (2, 3 and 4 agents) are held bitwise.  Then it drives the gym env
 (``env/gymapi.py``) on the card against the CPU, K1 held bitwise at
-``[1, A]``.  Each phase prints its seconds.
+``[1, A]``.  Last, it re-runs itself as ranks of ``torch.distributed``
+(``--rank-job``): 2 gloo ranks sharing the card (NCCL refuses two ranks on
+one card; the backend is chosen here, never by a fallback) run the main
+path's server (K1 counted on each rank and held bitwise at ``[8192, 4]``),
+one ga3c4 dispatch with the weights broadcast from rank 0, a distributed
+rollout and train_mlp2's sharded trainer, each held against one rank on the
+card; 1 NCCL rank runs the same rollout.  The strict-parity route runs
+card against CPU.  Each phase prints its seconds.
 
 It checks the fast route against the full pass wherever its exactness guard
 is quiet, and one env step on the card against the same step on the CPU,
@@ -84,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import importlib.util
 import json
 import math
@@ -1694,7 +1702,581 @@ def phase_gymapi():
     print(json.dumps({"gymapi": result}), flush=True)
 
 
+
+# ------------------------------------------- data parallelism, strict parity
+
+PAR_RANKS = 2                     # ranks sharing the one card (gloo, CUDA tensors)
+PAR_GA3C_STEPS = 64               # steps of parallel_ga3c4's one dispatch
+PAR_ROLLOUT_ENVS, PAR_ROLLOUT_STEPS = 1024, 32   # make_distributed_rollout, gloo and NCCL
+STRICT_ENVS, STRICT_STEPS = 64, 32
+# a card run of one minibatch step from one carry, 2 ranks against 1: params
+# within the CPU test's limit for the port against itself
+# (tests/test_torch_distributed.py, PARAMS_ATOL["port", "mlp"]), and the
+# applied gradients within a fraction of each tensor's largest entry
+SHARDED_PARAMS_ATOL = 1e-7
+SHARDED_GRADS_RTOL = 1e-5
+
+
+def hold_reduced(name, got, want):
+    """A metric reduced over the ranks against the 1-rank value: within rtol
+    1e-6 (``tests/test_parallel.py``'s limit for the obs checksum) plus atol
+    1e-6 of the dispatch's mean magnitude, because a reward sum cancels
+    (goals +1 against penalties of -0.1 to -0.25: the main path's mean reward
+    differs by 1.5e-6 relative, 3.7e-9 absolute, between a sum of 4096 envs
+    and one of two halves on the CPU).  Returns the largest difference."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = float(np.max(np.abs(got - want)))
+    check(np.allclose(got, want, rtol=1e-6, atol=1e-6 * float(np.mean(np.abs(want)))),
+          f"{name} apart by {diff} (values {want[:4].tolist()} ...)")
+    return diff
+
+
+def state_leaves(state):
+    from gym_collision_avoidance_torch import convert
+
+    return convert.state_to_numpy(state)
+
+
+def leaves_differ(got, want):
+    """The names of the leaves of ``{name: array}`` that are not bitwise
+    equal (NaN where NaN)."""
+    return sorted(k for k in want if not np.array_equal(got[k], want[k], equal_nan=True))
+
+
+def joined(results, case, key):
+    """The ranks' ``key`` results of ``case``, joined along the env axis."""
+    parts = [r[case][key] for r in results]
+    if isinstance(parts[0], dict):
+        return {k: np.concatenate([np.asarray(p[k]) for p in parts]) for k in parts[0]}
+    return np.concatenate([np.asarray(p) for p in parts])
+
+
+def rank_counts(kernels):
+    return {n: k.LAUNCHES for n, k in kernels.items()}
+
+
+def zero_counts(kernels):
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.LAUNCHES = 0
+
+
+@contextlib.contextmanager
+def held_k1(mesh, what, held):
+    """Capture K1's launches in the block and hold its first two bitwise
+    against the plain version; appends ``{"shape", "max_abs_err"}`` to
+    ``held``."""
+    from gym_collision_avoidance_torch.ops import pairwise
+
+    calls, outs = [], []
+    with capture(pairwise, "pairwise_collisions_cuda", calls, outs):
+        yield
+    check(len(calls) >= 2, f"{what}: K1 launched {len(calls)} times")
+    err = max(hold_k1(pairwise, calls[i], *outs[i], f"{what} rank {mesh.rank} launch {i}")
+              for i in range(2))
+    held.append({"shape": list(calls[0][0].shape[:2]), "max_abs_err": err})
+
+
+def check_held(ranks, what, shape):
+    """Each rank's K1 launches held bitwise (:func:`held_k1`) ran at
+    ``shape`` ``[E/D, A]``; returns the held shapes and their largest gap
+    difference."""
+    for r in ranks:
+        for h in r["k1_held"]:
+            check(h["shape"] == shape, f"{what}: K1 held at {h['shape']}, not {shape}")
+    return {"k1_held_bitwise_at": [h["shape"] for r in ranks for h in r["k1_held"]],
+            "k1_held_max_abs_err": max(h["max_abs_err"] for r in ranks for h in r["k1_held"])}
+
+
+def record_grads(trainer):
+    """Keep the gradients that each of ``trainer``'s minibatch steps
+    applies (averaged over the ranks), ``{name: array}``, in the list it
+    returns."""
+    seen, step = [], trainer.minibatch_step
+
+    def spy(params, opt_state, mb):
+        out = step(params, opt_state, mb)
+        seen.append({k: v.detach().cpu().numpy().copy() for k, v in out[0].items()})
+        return out
+
+    trainer.minibatch_step = spy
+    return seen
+
+
+def ranks_loss(trainer, perm, parts):
+    """Make an unsharded ``trainer``'s loss, for one epoch of one minibatch
+    shuffled by ``perm``, the mean over ``parts`` ranks of each one's loss on
+    its own streams (row ``i`` is a sample of stream ``perm[i // T]``): the
+    loss whose gradient a sharded run averages, each rank normalising its
+    alive-weighted means by its own alive count, as the JAX package's
+    ``pmean`` of the shards' gradients does."""
+    shard = (perm // (trainer.B // parts)).repeat_interleave(trainer.ppo.horizon)
+    loss_fn = trainer.loss_fn
+
+    def loss(params, mb):
+        out = [loss_fn(params, {k: v[shard == r] for k, v in mb.items()}) for r in range(parts)]
+        return sum(o[0] for o in out) / parts, out[0][1]
+
+    trainer.loss_fn = loss
+    return trainer
+
+
+def rank_serving(mesh, kernels):
+    """The main path's AutoresetServer on this rank's slice of its 16384
+    envs: 4 dispatches of 128 steps (the last 3 timed), K1 counted from 0 and
+    its first 2 launches captured and held bitwise against the plain
+    version."""
+    from gym_collision_avoidance_torch.harness import paths
+
+    path = paths.serving_path("main", mesh.device)
+    server = path.server(steps_per_dispatch=STEPS_PER_DISPATCH, mesh=mesh)
+    zero_counts(kernels)
+    dispatches, held = [], []
+    with held_k1(mesh, "parallel_serving", held):
+        dispatches.append(server.dispatch())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DISPATCHES - 1):
+        dispatches.append(server.dispatch())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"launches": rank_counts(kernels), "k1_held": held, "seconds": seconds,
+            "timed_steps": (DISPATCHES - 1) * STEPS_PER_DISPATCH,
+            "outs": [{k: v.cpu() for k, v in d.items()} for d in dispatches],
+            "states": state_leaves(server.states()), "counters": server._counters.cpu(),
+            "episodes": server.episodes_completed()}
+
+
+def rank_ga3c4(mesh, kernels):
+    """One dispatch of ga3c4 on this rank's slice of its 4096 envs, the
+    iros18 weights broadcast from rank 0; K1 counted from 0 and held."""
+    from gym_collision_avoidance_torch.harness import paths
+    from gym_collision_avoidance_torch.parallel import distributed
+
+    path = paths.serving_path("ga3c4", mesh.device)
+    distributed.replicate_global(path.params, mesh)
+    server = path.server(steps_per_dispatch=PAR_GA3C_STEPS, mesh=mesh)
+    zero_counts(kernels)
+    held = []
+    with held_k1(mesh, "parallel_ga3c4", held):
+        out = server.dispatch()
+    return {"launches": rank_counts(kernels), "k1_held": held,
+            "states": state_leaves(server.states()),
+            "counters": server._counters.cpu(), "mean_reward": out["mean_reward"].cpu(),
+            "obs_checksum": out["obs_checksum"].cpu()}
+
+
+def rollout_states(device):
+    """PAR_ROLLOUT_ENVS main-path envs, one pool case each, after a reset."""
+    from gym_collision_avoidance_torch.env import autoreset
+    from gym_collision_avoidance_torch.env.step import env_reset
+    from gym_collision_avoidance_torch.harness import paths
+
+    path = paths.serving_path("main", device)
+    pool = paths.one_case_per_env(PAR_ROLLOUT_ENVS, len(path.policy_id))
+    return path, env_reset(autoreset.state_from_case(path.cfg, pool, path.policy_id,
+                                                     device=device), path.cfg)[0]
+
+
+def rank_rollout(mesh, kernels):
+    """``make_distributed_rollout`` of PAR_ROLLOUT_STEPS steps on this rank's
+    slice of PAR_ROLLOUT_ENVS envs; K1 counted from 0 and held."""
+    from gym_collision_avoidance_torch.parallel import distributed, mesh as pmesh
+
+    path, states = rollout_states(mesh.device)
+    local = distributed.host_local_batch(lambda idx: pmesh.shard_env_batch(states, mesh),
+                                         PAR_ROLLOUT_ENVS, mesh)
+    run = distributed.make_distributed_rollout(path.cfg, PAR_ROLLOUT_STEPS, mesh, path.active)
+    zero_counts(kernels)
+    held = []
+    with held_k1(mesh, f"rollout over {mesh.backend}", held):
+        final, metrics = run(local)
+    return {"launches": rank_counts(kernels), "k1_held": held, "states": state_leaves(final),
+            "metrics": {k: v.cpu() for k, v in metrics.items()}}
+
+
+def sharded_mlp2():
+    """train_mlp2's path and its recipe cut to 1 epoch x 1 minibatch."""
+    from gym_collision_avoidance_torch.harness import paths
+
+    path = paths.training_path("train_mlp2")
+    return path, dataclasses.replace(path.ppo, epochs=1, num_minibatches=1)
+
+
+def rank_sharded_ppo(mesh, kernels):
+    """train_mlp2 on this rank's 512 of its 1024 envs: one 1 x 1 iteration
+    from ``init_fn``'s carry and seed 7 (K1 held, the applied gradients
+    kept), then one timed 4 x 4 iteration (after a warm-up) with its phase
+    split, K1 counted from 0."""
+    from gym_collision_avoidance_torch import convert
+    from gym_collision_avoidance_torch.train import make_sharded_ppo
+
+    path, ppo1 = sharded_mlp2()
+    step, init_fn, _ = make_sharded_ppo(ppo1, mesh, pool=path.pool)
+    params, opt, states, counters, obs = init_fn(ppo1.seed)
+    grads, held = record_grads(step.__self__), []
+    with held_k1(mesh, "sharded_ppo", held):
+        out = step(params, opt, states, counters, obs,
+                   rng=torch.Generator(mesh.device).manual_seed(7))
+    result = {"params": convert.ppo_params_to_numpy("mlp", out[0]), "grads": grads,
+              "k1_held": held,
+              "states": state_leaves(out[2]), "counters": out[3].cpu(),
+              "metrics": {k: float(v) for k, v in out[5].items()}}
+    step4, init4, _ = make_sharded_ppo(path.ppo, mesh, pool=path.pool)
+    carry, gen = init4(path.ppo.seed), torch.Generator(mesh.device).manual_seed(7)
+    *carry, _ = step4(*carry, rng=gen)
+    zero_counts(kernels)
+    timings = {}
+    t0 = time.perf_counter()
+    *carry, metrics = step4(*carry, rng=gen, timings=timings)
+    torch.cuda.synchronize()
+    result.update(seconds=time.perf_counter() - t0, timings=timings,
+                  launches=rank_counts(kernels),
+                  metrics4={k: float(v) for k, v in metrics.items()})
+    return result
+
+
+RANK_CASES = {"serving": rank_serving, "ga3c4": rank_ga3c4, "rollout": rank_rollout,
+              "sharded_ppo": rank_sharded_ppo}
+
+
+def rank_main(argv):
+    """A rank of a spawned job: ``--rank-job BACKEND CASES OUT_DIR`` and the
+    rendezvous flags that ``spawn_local`` appends.  Runs each case on this
+    rank's slice and saves ``{case: result}`` to ``OUT_DIR/rank<r>.pt``."""
+    import argparse
+
+    from gym_collision_avoidance_torch.ops import laser_fused, pairwise, raymarch
+    from gym_collision_avoidance_torch.parallel import distributed, mesh as pmesh
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rank-job", nargs=3, metavar=("BACKEND", "CASES", "OUT_DIR"))
+    ap.add_argument("--init-method")
+    ap.add_argument("--num-processes", type=int)
+    ap.add_argument("--process-id", type=int)
+    args = ap.parse_args(argv)
+    backend, cases, out_dir = args.rank_job
+    distributed.init_distributed(backend, num_processes=args.num_processes,
+                                 process_id=args.process_id, init_method=args.init_method)
+    mesh = pmesh.make_mesh(device_type="cuda", device=torch.device(DEVICE, 0))
+    kernels = {"pairwise": pairwise, "raymarch": raymarch, "laser_fused": laser_fused}
+    result = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+              "device": str(mesh.device)}
+    for case in cases.split(","):
+        t0 = time.perf_counter()
+        result[case] = RANK_CASES[case](mesh, kernels)
+        result[case]["case_seconds"] = time.perf_counter() - t0
+    torch.save(result, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_parallel_ranks():
+    """The spawned jobs: 2 ranks on the one card over gloo (CUDA tensors go
+    through the host: NCCL refuses two ranks on one card, and the backend is
+    chosen here, never by a fallback) running serving, ga3c4, the rollout and
+    the sharded trainer; then 1 rank over NCCL running the rollout.  The
+    kernels are built already, so the ranks only load them."""
+    import tempfile
+
+    from gym_collision_avoidance_torch.parallel import distributed
+
+    results = {}
+    script = os.path.abspath(__file__)
+    for label, backend, ranks, cases in (("gloo", "gloo", PAR_RANKS,
+                                          "serving,ga3c4,rollout,sharded_ppo"),
+                                         ("nccl", "nccl", 1, "rollout")):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as out:
+            t0 = time.perf_counter()
+            distributed.spawn_local([sys.executable, script, "--rank-job", backend, cases, out],
+                                    ranks, threads=None, timeout=600, capture=True)
+            results[label] = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                              for r in range(ranks)]
+            print(json.dumps({"parallel_ranks": {
+                "backend": backend, "ranks": ranks, "seconds": time.perf_counter() - t0,
+                "case_seconds": [{c: r[c]["case_seconds"] for c in cases.split(",")}
+                                 for r in results[label]]}}), flush=True)
+    for r in results["gloo"]:
+        check((r["backend"], r["size"], r["device"]) == ("gloo", PAR_RANKS, "cuda:0"),
+              f"gloo rank {r['rank']}: {r['backend']}, {r['size']} ranks, {r['device']}")
+    check(results["nccl"][0]["backend"] == "nccl", "the one-rank mesh is not NCCL")
+    return results
+
+
+def phase_parallel_serving(results, kernels):
+    """The main path (E = 16384) on 2 ranks of 8192 envs against one
+    unsharded server on the card: states and counters bitwise, episodes
+    equal, the reduced metrics by :func:`hold_reduced` (the ranks sum their
+    slices), K1 512 times on each rank and held bitwise at [8192, 4] (twice
+    a rank)."""
+    from gym_collision_avoidance_torch.harness import paths
+
+    ranks = [r["serving"] for r in results]
+    path = serving_path("main")
+    server = path.server(steps_per_dispatch=STEPS_PER_DISPATCH, device=DEVICE)
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    outs = [server.dispatch()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DISPATCHES - 1):
+        outs.append(server.dispatch())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = DISPATCHES * STEPS_PER_DISPATCH
+    check(kernels["pairwise"].LAUNCHES == total, "1 rank: K1 launch count")
+    for r in ranks:
+        check(r["launches"]["pairwise"] == total,
+              f"a rank launched K1 {r['launches']['pairwise']} times in {total} steps")
+        check(r["launches"]["raymarch"] == r["launches"]["laser_fused"] == 0,
+              "a rank launched a laser kernel")
+    held = check_held(ranks, "parallel_serving", [E_MAIN // PAR_RANKS, A_MAIN])
+    differ = leaves_differ(joined(results, "serving", "states"), state_leaves(server.states()))
+    check(not differ, f"parallel_serving: leaves {differ} differ from the 1-rank run")
+    check(np.array_equal(joined(results, "serving", "counters"), server._counters.cpu().numpy()),
+          "parallel_serving: counters differ")
+    episodes = server.episodes_completed()
+    check(all(r["episodes"] == episodes for r in ranks) and episodes > 0,
+          f"parallel_serving: episodes {[r['episodes'] for r in ranks]} against {episodes}")
+    worst = {}
+    for d, want in enumerate(outs):
+        for r in ranks:
+            for k in ("mean_reward", "obs_checksum"):
+                diff = hold_reduced(f"parallel_serving: {k}", r["outs"][d][k].numpy(),
+                                    want[k].cpu().numpy())
+                worst[k] = max(worst.get(k, 0.0), diff)
+    timed = (DISPATCHES - 1) * STEPS_PER_DISPATCH
+    slowest = max(r["seconds"] for r in ranks)
+    line = {"num_envs": E_MAIN, "ranks": PAR_RANKS, "envs_per_rank": E_MAIN // PAR_RANKS,
+            "steps": total, "timed_steps": timed, "states_and_counters_bitwise_equal": True,
+            "episodes_completed": episodes, "metrics_max_abs_diff": worst,
+            "k1_launches_per_rank": [r["launches"]["pairwise"] for r in ranks], **held,
+            "env_steps_per_s_1_rank": timed * E_MAIN / seconds,
+            "env_steps_per_s_2_ranks_sharing_one_card": timed * E_MAIN / slowest,
+            "seconds_1_rank": seconds, "seconds_per_rank": [r["seconds"] for r in ranks]}
+    print(json.dumps({"parallel_serving": line}), flush=True)
+    return {f"parallel_serving_rank{i}": r["launches"] for i, r in enumerate(ranks)}
+
+
+def row_count_effect(fn, whole, parts):
+    """Whether ``fn`` of the row blocks ``parts`` of ``whole`` differs in any
+    bit from the rows of ``fn(whole)`` (a library product may take another
+    algorithm for fewer rows); and both results."""
+    want, got = fn(whole), torch.cat([fn(x) for x in parts])
+    return not bitwise_equal(want, got), want, got
+
+
+def env_rows(state, parts):
+    """``state`` cut into ``parts`` equal blocks of envs."""
+    n = state.num_envs // parts
+    return [state.map(lambda x, i=i: x[i * n:(i + 1) * n]) for i in range(parts)]
+
+
+def phase_parallel_ga3c4(results):
+    """One ga3c4 dispatch (E = 4096) on 2 ranks, the weights broadcast by
+    ``replicate_global``, against one unsharded server.  States are held
+    bitwise; if they differ, the GA3C net must give other bits for 2048 rows
+    than for 4096 on the card (cuBLAS choosing by row count), and its
+    actions on the final states agree under ``argmax_agreement``'s near-tie
+    rule, on all but 1% of the envs."""
+    from gym_collision_avoidance_torch.policies import ga3c
+
+    path = serving_path("ga3c4")
+    server = path.server(steps_per_dispatch=PAR_GA3C_STEPS, device=DEVICE)
+    out = server.dispatch()
+    want = state_leaves(server.states())
+    got = joined(results, "ga3c4", "states")
+    differ = leaves_differ(got, want)
+    state = server.states()
+    E, A = state.pos.shape[:2]
+    effect, whole, pieces = row_count_effect(lambda st: ga3c.ga3c_cadrl_probs(st, path.params),
+                                             state, env_rows(state, PAR_RANKS))
+    _, line = argmax_agreement("ga3c4 rows", whole.cpu(), pieces.cpu(), 1e-5)
+    envs_apart = int((got["pos"] != want["pos"]).any(axis=(1, 2)).sum())
+    if differ:
+        check(effect, f"parallel_ga3c4: leaves {differ} differ with no row-count effect")
+        check(envs_apart <= E // 100, f"parallel_ga3c4: {envs_apart} envs apart")
+    check(np.array_equal(joined(results, "ga3c4", "counters"), server._counters.cpu().numpy()),
+          "parallel_ga3c4: counters differ")
+    for r in results:
+        hold_reduced("parallel_ga3c4: mean_reward", r["ga3c4"]["mean_reward"].numpy(),
+                     out["mean_reward"].cpu().numpy())
+        check(r["ga3c4"]["launches"]["pairwise"] == PAR_GA3C_STEPS, "parallel_ga3c4: K1 count")
+    held = check_held([r["ga3c4"] for r in results], "parallel_ga3c4", [E // PAR_RANKS, A])
+    print(json.dumps({"parallel_ga3c4": {
+        "num_envs": E, "agents": A, "ranks": PAR_RANKS, "steps": PAR_GA3C_STEPS, **held,
+        "states_bitwise_equal": not differ, "leaves_apart": differ, "envs_apart": envs_apart,
+        "net_bits_depend_on_row_count": effect, "actions_on_final_states": line}}), flush=True)
+    return {f"parallel_ga3c4_rank{i}": r["ga3c4"]["launches"] for i, r in enumerate(results)}
+
+
+def phase_parallel_nccl(results):
+    """``make_distributed_rollout`` of the same PAR_ROLLOUT_ENVS envs on a
+    1-rank NCCL mesh and on the 2-rank gloo mesh: final states bitwise, done
+    counts equal, mean rewards by :func:`hold_reduced` (a mean of 2 slice
+    means against one mean); K1 PAR_ROLLOUT_STEPS times on every rank, held
+    bitwise at [512, 4] on the gloo ranks and [1024, 4] on the NCCL one."""
+    nccl, gloo = results["nccl"][0]["rollout"], results["gloo"]
+    runs = {f"rollout_gloo_rank{i}": r["rollout"] for i, r in enumerate(gloo)}
+    runs["rollout_nccl"] = nccl
+    for name, r in runs.items():
+        check(r["launches"]["pairwise"] == PAR_ROLLOUT_STEPS,
+              f"{name}: K1 launched {r['launches']['pairwise']} times")
+    held = {"gloo": check_held([r["rollout"] for r in gloo], "rollout over gloo",
+                               [PAR_ROLLOUT_ENVS // PAR_RANKS, A_MAIN]),
+            "nccl": check_held([nccl], "rollout over nccl", [PAR_ROLLOUT_ENVS, A_MAIN])}
+    differ = leaves_differ(joined(gloo, "rollout", "states"), nccl["states"])
+    check(not differ, f"parallel_nccl: leaves {differ} differ from the gloo run")
+    for r in gloo:
+        m = r["rollout"]["metrics"]
+        check(torch.equal(m["done_count"], nccl["metrics"]["done_count"]),
+              "parallel_nccl: done counts differ")
+        hold_reduced("parallel_nccl: mean_reward", m["mean_reward"].numpy(),
+                     nccl["metrics"]["mean_reward"].numpy())
+    check(float(nccl["metrics"]["done_count"].sum()) > 0, "parallel_nccl: no episode ended")
+    print(json.dumps({"parallel_nccl": {
+        "num_envs": PAR_ROLLOUT_ENVS, "steps": PAR_ROLLOUT_STEPS, "backend": "nccl",
+        "states_bitwise_equal_to_gloo": True, "k1_held": held,
+        "k1_launches": {name: r["launches"]["pairwise"] for name, r in runs.items()},
+        "done_count": float(nccl["metrics"]["done_count"].sum()),
+        "mean_reward_max_abs_diff": max(float((r["rollout"]["metrics"]["mean_reward"]
+                                               - nccl["metrics"]["mean_reward"]).abs().max())
+                                        for r in gloo)}}), flush=True)
+    return {name: r["launches"] for name, r in runs.items()}
+
+
+def blockwise_mlp(trainer, parts):
+    """Make ``trainer``'s MLP evaluate its rows in ``parts`` equal blocks, as
+    ``parts`` ranks each evaluate their own."""
+    apply = trainer.family.net_apply
+
+    def net_apply(params, x):
+        outs = [apply(params, block) for block in x.chunk(parts)]
+        mean = torch.cat([o[0][0] for o in outs])
+        return (mean, outs[0][0][1]), torch.cat([o[1] for o in outs])
+
+    trainer.family.net_apply = net_apply
+    return trainer
+
+
+def phase_sharded_ppo(results):
+    """train_mlp2 (E = 1024, T = 64, 2 agents against RVO) on 2 ranks against
+    1 rank on the card, from ``init_fn``'s carry and one seed, 1 epoch x 1
+    minibatch.  Env states are held bitwise and counters equal against a
+    1-rank run whose MLP evaluates its rows in the ranks' two blocks
+    (:func:`blockwise_mlp`; cuBLAS may take another algorithm for 512 rows
+    than for 1024, and then an action an ulp apart moves a state) and whose
+    loss is the ranks' mean loss (:func:`ranks_loss`); params within
+    SHARDED_PARAMS_ATOL of it, and the gradients the ranks applied within
+    SHARDED_GRADS_RTOL of each tensor's largest entry (Adam's first step is
+    about ``lr * sign(g)``, so only the gradients show their scale).  Whether
+    the MLP's bits depend on the row count, and the plain 1-rank run's
+    distance, are reported; K1 is held at [512, 2] on each rank.  Then the 2
+    ranks' timed 4 x 4 iteration."""
+    from gym_collision_avoidance_torch import convert
+    from gym_collision_avoidance_torch.train import PPOTrainer
+
+    path, ppo1 = sharded_mlp2()
+    runs = {}
+    for name in ("one_rank", "one_rank_ranks_loss"):
+        trainer = PPOTrainer(ppo1, pool=path.pool, device=DEVICE)
+        params, opt, states, counters, obs = trainer.init_fn(ppo1.seed)
+        grads = record_grads(trainer)
+        if name == "one_rank":
+            x = trainer.flatten_ego(obs)
+            effect, _, _ = row_count_effect(lambda r: trainer.family.net_apply(params, r)[0][0],
+                                            x, x.chunk(PAR_RANKS))
+        else:
+            blockwise_mlp(trainer, PAR_RANKS)
+            perm = trainer.sample_noise(torch.Generator(DEVICE).manual_seed(7))["perm"][0]
+            ranks_loss(trainer, perm, PAR_RANKS)
+        out = trainer.train_step(params, opt, states, counters, obs,
+                                 rng=torch.Generator(DEVICE).manual_seed(7))
+        runs[name] = {"states": state_leaves(out[2]), "counters": out[3].cpu().numpy(),
+                      "params": convert.ppo_params_to_numpy("mlp", out[0]), "grads": grads[0]}
+    got = joined(results, "sharded_ppo", "states")
+    counters = joined(results, "sharded_ppo", "counters")
+    mine = results[0]["sharded_ppo"]["params"]
+    (applied,) = results[0]["sharded_ppo"]["grads"]
+    report = {}
+    for name, run in runs.items():
+        report[name] = {
+            "grads_max_diff_over_largest": max(
+                float(np.max(np.abs(applied[k] - g)) / np.max(np.abs(g)))
+                for k, g in run["grads"].items()),
+            "leaves_apart": leaves_differ(got, run["states"]),
+            "counters_equal": bool(np.array_equal(counters, run["counters"])),
+            "state_max_abs_diff": {k: float(np.max(np.abs(got[k].astype(np.float64)
+                                                          - run["states"][k])))
+                                   for k in ("pos", "vel", "heading", "speed")},
+            "params_max_abs_diff": max(float(np.max(np.abs(mine[k] - run["params"][k])))
+                                       for k in mine)}
+    held = "one_rank_ranks_loss"
+    check(not report[held]["leaves_apart"],
+          f"sharded_ppo: leaves {report[held]['leaves_apart']} differ from the {held} run")
+    check(report[held]["counters_equal"], f"sharded_ppo: counters differ from the {held} run")
+    check(report[held]["params_max_abs_diff"] <= SHARDED_PARAMS_ATOL,
+          f"sharded_ppo: params apart from the {held} run: {report[held]}")
+    check(report[held]["grads_max_diff_over_largest"] <= SHARDED_GRADS_RTOL,
+          f"sharded_ppo: gradients apart from the {held} run: {report[held]}")
+    for r in results[1:]:
+        check(all(np.array_equal(r["sharded_ppo"]["params"][k], mine[k]) for k in mine),
+              "sharded_ppo: the replicas' params differ")
+    timed = [r["sharded_ppo"] for r in results]
+    k1_held = check_held(timed, "sharded_ppo", [path.ppo.num_envs // PAR_RANKS, 2])
+    T, E = path.ppo.horizon, path.ppo.num_envs
+    slowest = max(t["seconds"] for t in timed)
+    for t in timed:
+        check(t["launches"]["pairwise"] == T, f"sharded_ppo: K1 launched {t['launches']}")
+        finite_metrics("sharded_ppo", t["metrics4"])
+    print(json.dumps({"sharded_ppo": {
+        "num_envs": E, "ranks": PAR_RANKS, "horizon": T,
+        "one_minibatch_step": {"net_bits_depend_on_row_count": effect, "held_against": held,
+                               **report, **k1_held},
+        "iteration_4x4": {"seconds_per_rank": [t["seconds"] for t in timed],
+                          "env_steps_per_s_2_ranks_sharing_one_card": E * T / slowest,
+                          "phase_ms_rank0": {k: 1e3 * v for k, v in timed[0]["timings"].items()},
+                          "k1_launches_per_rank": [t["launches"]["pairwise"] for t in timed]}}}),
+          flush=True)
+    return {f"sharded_ppo_rank{i}": t["launches"] for i, t in enumerate(timed)}
+
+
+def phase_strict_parity(kernels):
+    """STRICT_STEPS auto-reset steps of the main path at E = STRICT_ENVS with
+    ``strict_parity=True`` on the card against the CPU: pos, heading, vel and
+    speed bitwise equal (both compute atan2 and the dynamics on the host)."""
+    from gym_collision_avoidance_torch.harness.serving import AutoresetServer
+
+    path = serving_path("main")
+    cfg = path.cfg.replace(strict_parity=True)
+    servers = {d: AutoresetServer(cfg, path.pool, path.policy_id, num_envs=STRICT_ENVS,
+                                  steps_per_dispatch=STRICT_STEPS, device=d)
+               for d in (DEVICE, "cpu")}
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    servers[DEVICE].dispatch()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = rank_counts(kernels)
+    servers["cpu"].dispatch()
+    card, cpu = (state_leaves(servers[d].states()) for d in (DEVICE, "cpu"))
+    differ = leaves_differ(card, cpu)
+    check(not {"pos", "heading", "vel", "speed"} & set(differ),
+          f"strict_parity: {differ} differ between the card and the CPU")
+    check(launches["pairwise"] == STRICT_STEPS, f"strict_parity: K1 {launches}")
+    check(servers["cpu"].episodes_completed() > 0, "strict_parity: no episode completed")
+    print(json.dumps({"strict_parity": {
+        "num_envs": STRICT_ENVS, "steps": STRICT_STEPS, "pos_heading_vel_speed_bitwise": True,
+        "other_leaves_apart": differ, "episodes_completed": servers["cpu"].episodes_completed(),
+        "ms_per_step": 1e3 * seconds / STRICT_STEPS}}), flush=True)
+    return {"strict_parity": launches}
+
+
 def main():
+    if "--rank-job" in sys.argv:
+        return rank_main(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
               file=sys.stderr)
@@ -1749,6 +2331,12 @@ def main():
     run("suite_controls", phase_suite_controls)
     run("suite_k1", phase_suite_k1)
     run("gymapi", phase_gymapi)
+    ranks = run("parallel_ranks", phase_parallel_ranks)
+    by_path.update(run("parallel_serving", phase_parallel_serving, ranks["gloo"], kernels))
+    by_path.update(run("parallel_ga3c4", phase_parallel_ga3c4, ranks["gloo"]))
+    by_path.update(run("parallel_nccl", phase_parallel_nccl, ranks))
+    by_path.update(run("sharded_ppo", phase_sharded_ppo, ranks["gloo"]))
+    by_path.update(run("strict_parity", phase_strict_parity, kernels))
 
     for k, name, main_path in ((k1, "pairwise", "main"), (k2, "raymarch", "laser_full"),
                                (k3, "laser_fused", "laser_fast")):

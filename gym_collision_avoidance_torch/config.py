@@ -81,8 +81,9 @@ class EnvConfig:
     # The reference buffers every action through a float32 array before
     # integrating dynamics (envs/collision_avoidance_env.py:304-306).
     cast_actions_to_f32: bool = True
-    # Bitwise-parity mode of the JAX package (host-numpy atan2 and
-    # dynamics); not ported, raises NotImplementedError.
+    # Bitwise-parity mode: atan2 and the dynamics in host numpy, as the
+    # reference computes them (core/maths.py, core/dynamics.py); a host round
+    # trip each step, for validation, not speed.
     strict_parity: bool = False
 
     # env-wide action limits applied to learning policies

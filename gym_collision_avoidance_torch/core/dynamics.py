@@ -2,13 +2,17 @@
 :mod:`gym_collision_avoidance_tpu.core.dynamics`).
 
 Every model is computed for every agent and the right result selected by
-``dynamics_id``.  The JAX package's strict-parity host route is not ported.
+``dynamics_id``.  With ``exact=True`` (``cfg.strict_parity``) the unicycle
+step and the ego-frame refresh run in host numpy, copied op for op from the
+JAX package's ``_np_*`` functions, which replicate the reference simulator's
+scalar arithmetic.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from gym_collision_avoidance_torch.core import maths
@@ -28,6 +32,66 @@ DYNAMICS_NAMES = {
 MAX_TURN_RATE = 3.0
 
 
+def _np_wrap(a):
+    # identical arithmetic to the reference's scalar while-loop
+    # (envs/util.py:141-146) for |a| < 7 pi
+    for _ in range(3):
+        a = np.where(a >= np.pi, a - 2 * np.pi, a)
+        a = np.where(a < -np.pi, a + 2 * np.pi, a)
+    return a
+
+
+def _np_unicycle_step(pos, heading, action, dt, max_turn_rate):
+    """Host-numpy unicycle step, ``UnicycleDynamics.step``
+    (UnicycleDynamics.py:27-39) operation for operation."""
+    sel_speed = action[..., 0]
+    dheading = action[..., 1]
+    if max_turn_rate is not None:
+        # the reference runs this chain in float32 (its actions pass through
+        # an f32 buffer, collision_avoidance_env.py:305-306); only the
+        # +heading add below promotes to the state dtype
+        d32 = np.float32(dheading)
+        rate32 = np.clip(d32 / np.float32(dt), -np.float32(max_turn_rate),
+                         np.float32(max_turn_rate))
+        dheading = (rate32 * np.float32(dt)).astype(np.asarray(heading).dtype)
+    sel_heading = _np_wrap(dheading + heading)
+    c = np.cos(sel_heading)
+    s = np.sin(sel_heading)
+    dx = sel_speed * c * dt
+    dy = sel_speed * s * dt
+    new_pos = pos + np.stack([dx, dy], axis=-1)
+    new_vel = np.stack([sel_speed * c, sel_speed * s], axis=-1)
+    delta = _np_wrap(sel_heading - heading)
+    return new_pos, new_vel, sel_speed, sel_heading, delta
+
+
+def _np_libm_square(a):
+    """The reference's ``x**2`` of a scalar, libm ``pow`` element by element
+    (1 ulp off an exact multiply, and off numpy's vectorised square, on
+    about 0.1% of inputs)."""
+    a = np.asarray(a, np.float64)
+    return np.array([math.pow(v, 2.0) for v in a.ravel()]).reshape(a.shape)
+
+
+def _np_update_ego_frame(pos, goal, heading, vel):
+    """Host-numpy ego-frame refresh, ``Agent.get_ref`` (agent.py:329-349)
+    and ``Dynamics.update_ego_frame`` (Dynamics.py:24-41) op for op."""
+    gd = goal - pos
+    dist = np.sqrt(_np_libm_square(gd[..., 0]) + _np_libm_square(gd[..., 1]))
+    ref_prll = np.where(
+        (dist > 1e-8)[..., None], gd / np.maximum(dist, 1e-30)[..., None], gd
+    )
+    ref_orth = np.stack([-ref_prll[..., 1], ref_prll[..., 0]], axis=-1)
+    ref_angle = np.arctan2(ref_prll[..., 1], ref_prll[..., 0])
+    heading_ego = _np_wrap(heading - ref_angle)
+    cur_speed = np.sqrt(_np_libm_square(vel[..., 0]) + _np_libm_square(vel[..., 1]))
+    vel_ego = np.stack(
+        [cur_speed * np.cos(heading_ego), cur_speed * np.sin(heading_ego)],
+        axis=-1,
+    )
+    return ref_prll, ref_orth, dist, heading_ego, vel_ego
+
+
 def unicycle_step(pos, heading, action, dt, *, max_turn_rate=None, exact=False):
     """One unicycle step (UnicycleDynamics.py:27-39): turn by
     ``action[..., 1]``, then move at ``action[..., 0]`` for ``dt``.
@@ -40,7 +104,11 @@ def unicycle_step(pos, heading, action, dt, *, max_turn_rate=None, exact=False):
          delta_heading)
     """
     if exact:
-        raise NotImplementedError(f"cfg.strict_parity: {maths.STRICT_PARITY_ITEM}")
+        # dt reaches the JAX route's callback as an array of the state dtype
+        dt_arr = np.asarray(dt, np.float32 if pos.dtype == torch.float32 else np.float64)
+        return maths.on_host(
+            lambda p, h, a: _np_unicycle_step(p, h, a, dt_arr, max_turn_rate),
+            pos, heading, action)
     selected_speed = action[..., 0]
     dheading = action[..., 1]
     if max_turn_rate is not None:
@@ -122,10 +190,14 @@ def step_all(pos, vel, speed, heading, delta_heading, turning_dir, dynamics_id,
 def update_ego_frame(pos, goal, heading, vel, exact: bool = False):
     """Recompute the goal-aligned ego frame (Dynamics.py:24-41).
 
+    ``exact`` runs the whole refresh in host numpy (strict-parity mode).
+
     Returns:
         (ref_prll [..., 2], ref_orth [..., 2], dist_to_goal, heading_ego,
          vel_ego [..., 2])
     """
+    if exact:
+        return maths.on_host(_np_update_ego_frame, pos, goal, heading, vel)
     ref_prll, ref_orth, dist_to_goal = maths.goal_frame_axes(pos, goal)
     ref_angle = maths.arctan2(ref_prll[..., 1], ref_prll[..., 0], exact=exact)
     heading_ego = maths.wrap(heading - ref_angle)

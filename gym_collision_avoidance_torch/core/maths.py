@@ -2,7 +2,9 @@
 
 All functions broadcast over leading axes; the last axis of a vector is
 ``(x, y)``.  XLA's and torch's ``atan2`` / ``sin`` / ``cos`` differ by ulps,
-so floats agree with the JAX package to a tolerance, not bitwise.
+so floats agree with the JAX package to a tolerance, not bitwise, except on
+the strict-parity route (``cfg.strict_parity``), which computes ``atan2`` and
+the dynamics in host numpy as the JAX package's route does.
 """
 
 from __future__ import annotations
@@ -14,9 +16,6 @@ import torch
 
 _TWO_PI = 2.0 * math.pi
 
-# Named for the error messages of the pieces that are not ported yet.
-STRICT_PARITY_ITEM = "ROADMAP.md §1 item 2 (strict-parity host route)"
-
 
 def wrap(angle: torch.Tensor) -> torch.Tensor:
     """Wrap angle(s) to ``[-pi, pi)`` with the reference's unrolled
@@ -27,11 +26,28 @@ def wrap(angle: torch.Tensor) -> torch.Tensor:
     return angle
 
 
+def on_host(fn, *tensors):
+    """``fn`` on the tensors' host numpy copies; every array it returns comes
+    back as a tensor of the first tensor's dtype and device (as
+    ``jax.pure_callback`` casts to its declared dtype).  The strict-parity
+    route's counterpart of that callback: a host round trip (and a
+    synchronise on the card) for each call, for validation, not speed."""
+    like = tensors[0]
+    out = fn(*(t.detach().cpu().numpy() for t in tensors))
+    np_dtype = np.float32 if like.dtype == torch.float32 else np.float64
+    single = not isinstance(out, tuple)
+    back = tuple(torch.from_numpy(np.asarray(o, np_dtype)).to(like.device)
+                 for o in ((out,) if single else out))
+    return back[0] if single else back
+
+
 def arctan2(y: torch.Tensor, x: torch.Tensor, exact: bool = False) -> torch.Tensor:
-    """``atan2``; the JAX package's ``exact=True`` host-numpy route is not
-    ported."""
+    """``atan2``.  ``exact=True`` (strict-parity mode) computes it in host
+    numpy, whose libm ``atan2`` is the reference simulator's, as the JAX
+    package's ``pure_callback`` route does."""
     if exact:
-        raise NotImplementedError(f"cfg.strict_parity: {STRICT_PARITY_ITEM}")
+        dtype = torch.promote_types(y.dtype, x.dtype)
+        return on_host(np.arctan2, y.to(dtype), x.to(dtype))
     return torch.atan2(y, x)
 
 

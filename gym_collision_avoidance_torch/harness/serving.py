@@ -12,8 +12,19 @@ Example::
 PyTorch calls and returns per-step stacked outputs ``[S, ...]``: the
 requested ``collect`` obs keys, ``mean_reward`` and ``obs_checksum``, and
 with a fast laserscan route ``exactness_overflow``.  It does not
-synchronise; reading a value does.  Sharding over a device mesh
-(ROADMAP.md §1 item 16) is not ported.
+synchronise; reading a value does.
+
+With ``mesh`` (a :class:`parallel.mesh.EnvMesh`) every rank builds and steps
+only its slice of the ``num_envs`` envs, and its counters start at the
+slice's global indices, so each env picks the pool case it picks unsharded.
+The metrics are reduced over the mesh at the end of each dispatch, in one
+``all_reduce`` of one stacked buffer (the per-step sums of the slice), so
+``dispatch`` returns what an unsharded server returns.  Reducing there
+rather than when a value is read keeps ``dispatch``'s return a plain dict
+of tensors and costs one collective a dispatch, not one a step.  Over NCCL
+the collective is queued on the stream; over gloo it copies the buffer
+through the host and so waits for the dispatch to finish, which costs
+little on a loop that the host, not the card, holds back.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from gym_collision_avoidance_torch.config import EnvConfig
 from gym_collision_avoidance_torch.core.device import resolve_device
 from gym_collision_avoidance_torch.env import autoreset
 from gym_collision_avoidance_torch.obs import spec as obs_spec
+from gym_collision_avoidance_torch.parallel.mesh import EnvMesh, pool_rows
 
 
 class AutoresetServer:
@@ -48,7 +60,11 @@ class AutoresetServer:
             route the step's exactness guard is gathered every step, per
             dispatch (``out["exactness_overflow"]``, ``[S]`` bool) and since
             construction (:meth:`exactness_overflow`).
-        device: ``None`` means CUDA (raises if it is absent).
+        device: ``None`` means CUDA (raises if it is absent), or the
+            mesh's device.
+        mesh: an :class:`parallel.mesh.EnvMesh`; ``num_envs`` is then the
+            global count, which the mesh's rank count must divide.  ``None``
+            means a mesh of this process alone.
     """
 
     def __init__(
@@ -66,8 +82,10 @@ class AutoresetServer:
         static_map=None,
         static_cells=None,
         device=None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.device if device is None and mesh else device)
+        self.mesh = mesh = EnvMesh(self.device) if mesh is None else mesh
         pool = np.asarray(pool)
         policy_id = np.asarray(policy_id, np.int32)
         if active_policies is None:
@@ -81,12 +99,13 @@ class AutoresetServer:
         self.steps_per_dispatch = int(steps_per_dispatch)
         self.collect = tuple(collect)
         self._n_agents = int(policy_id.shape[0])
-        N = pool.shape[0]
+        start, count = mesh.env_slice(self.num_envs)
+        self._first = torch.arange(start, start + count, dtype=torch.int32,
+                                   device=self.device)
         self._states = autoreset.state_from_case(
-            cfg, pool[np.arange(self.num_envs) % N], policy_id, device=self.device
+            cfg, pool_rows(pool, start, count), policy_id, device=self.device
         )
-        self._counters = torch.arange(self.num_envs, dtype=torch.int32,
-                                      device=self.device)
+        self._counters = self._first.clone()
         self._overflow = torch.zeros((), dtype=torch.bool, device=self.device)
 
     def dispatch(self):
@@ -105,11 +124,22 @@ class AutoresetServer:
                 overflows.append(info["laserscan_exactness_overflow"].any())
         self._states, self._counters = st, c
         out = {k: torch.stack(v) for k, v in outs.items()}
-        out["mean_reward"] = torch.stack(rewards).mean(dim=1) / self._n_agents
-        out["obs_checksum"] = torch.stack(checksums).sum(dim=1)
+        out.update(self._reduce(rewards, checksums, overflows))
         if overflows:
-            out["exactness_overflow"] = torch.stack(overflows)
             self._overflow = self._overflow | out["exactness_overflow"].any()
+        return out
+
+    def _reduce(self, rewards, checksums, overflows):
+        """The dispatch's metrics over the mesh: the slice's per-step sums
+        ``[S, 1 + A (+ 1)]`` in one buffer and one ``all_reduce``."""
+        sums = [torch.stack(rewards).sum(dim=1, keepdim=True), torch.stack(checksums).sum(dim=1)]
+        if overflows:
+            sums.append(torch.stack(overflows).to(sums[0].dtype)[:, None])
+        buf = self.mesh.psum(torch.cat(sums, dim=1))
+        out = {"mean_reward": buf[:, 0] / self.num_envs / self._n_agents,
+               "obs_checksum": buf[:, 1:1 + self._n_agents]}
+        if overflows:
+            out["exactness_overflow"] = buf[:, -1] > 0
         return out
 
     def _sync(self):
@@ -117,15 +147,17 @@ class AutoresetServer:
             torch.cuda.synchronize(self.device)
 
     def states(self):
-        """Current ``[E, A]`` env states, synchronised."""
+        """Current ``[E, A]`` env states (with a mesh, this rank's slice),
+        synchronised."""
         self._sync()
         return self._states
 
     def episodes_completed(self) -> int:
-        """Total episodes finished since construction (syncs), summed in
-        int64 on the host."""
-        counters = self._counters.cpu().numpy().astype(np.int64)
-        return int(np.sum(counters - np.arange(self.num_envs, dtype=np.int64)))
+        """Total episodes finished since construction over every env (syncs),
+        summed in int64.  With a mesh it is a collective: every rank calls
+        it."""
+        done = torch.sum(self._counters.to(torch.int64) - self._first.to(torch.int64))
+        return int(self.mesh.psum(done.reshape(1)))
 
     def exactness_overflow(self) -> bool:
         """True if any step since construction tripped the laserscan

@@ -7,7 +7,8 @@ from gym_collision_avoidance_torch.train.ppo import (
     compute_gae,
     init_actor_critic,
     make_ppo,
+    make_sharded_ppo,
 )
 
 __all__ = ["PPOConfig", "PPOTrainer", "actor_critic", "compute_gae", "init_actor_critic",
-           "make_ppo"]
+           "make_ppo", "make_sharded_ppo"]

@@ -36,7 +36,11 @@ Usage::
     gen = torch.Generator("cuda").manual_seed(7)
     *carry, metrics = train_step(*carry, rng=gen)
 
-``make_sharded_ppo`` (data parallelism over devices) is not ported yet.
+:func:`make_sharded_ppo` runs the same iteration data-parallel over an
+``("env",)`` mesh of ranks (``parallel/mesh.py``), as the JAX package's
+``shard_map`` does: each rank rolls out its slice of the envs, and the
+advantage statistics, the gradients and the metrics are averaged over the
+ranks (``all_reduce``) where the JAX trainer ``pmean``-s them.
 """
 
 from __future__ import annotations
@@ -59,6 +63,8 @@ from gym_collision_avoidance_torch.env.step import env_reset
 from gym_collision_avoidance_torch.maps.grid import reciprocal
 from gym_collision_avoidance_torch.models import drl_long, ga3c_cadrl
 from gym_collision_avoidance_torch.obs import spec as obs_spec
+from gym_collision_avoidance_torch.parallel.distributed import replicate_global
+from gym_collision_avoidance_torch.parallel.mesh import EnvMesh, pool_rows
 from gym_collision_avoidance_torch.policies import registry as policies
 from gym_collision_avoidance_torch.train import optim
 
@@ -318,14 +324,21 @@ class PPOTrainer:
             seed=ppo.seed, side_length=3.0)``.
         static_cells: occupied-cell list of a laserscan config; default an
             empty one (an agents-only world).
-        device: ``None`` means CUDA.
+        device: ``None`` means CUDA, or the mesh's device.
+        mesh: an :class:`parallel.mesh.EnvMesh` (:func:`make_sharded_ppo`):
+            ``ppo.num_envs`` is then this rank's count, the envs are the
+            global batch's rows of this rank, and the advantage statistics,
+            gradients and metrics are averaged over the ranks.  ``None``
+            means a mesh of this process alone, whose averages leave every
+            bit as it is.
     """
 
     def __init__(self, ppo: PPOConfig, cfg: Optional[EnvConfig] = None, pool=None,
                  sensors: Tuple[str, ...] = ("other_agents_states",),
                  states_in_obs: Tuple[str, ...] = obs_spec.DEFAULT_STATES_IN_OBS,
-                 static_cells=None, device=None):
-        self.device = device = resolve_device(device)
+                 static_cells=None, device=None, mesh=None):
+        self.device = device = resolve_device(mesh.device if device is None and mesh else device)
+        self.mesh = mesh = EnvMesh(device) if mesh is None else mesh
         self.ppo = ppo
         E, A = ppo.num_envs, ppo.num_agents
         arch = ppo.policy_arch
@@ -354,6 +367,11 @@ class PPOTrainer:
         self.sensors, self.states_in_obs, self.static_cells = sensors, states_in_obs, static_cells
         self.L = L = A if ppo.self_play else 1
         self.B = E * L
+        # this rank's first global env and sample stream, and the global
+        # stream count (the unsharded trainer's B)
+        self.env_start = mesh.rank * E
+        self.stream_start = self.env_start * L
+        self.B_global = self.B * mesh.size
         if ppo.self_play:
             self.policy_id = np.full(A, learner_pid, np.int32)
             active = (int(learner_pid),)
@@ -401,31 +419,44 @@ class PPOTrainer:
                           for k in self.ego_keys], dim=-1)
 
     def reset_batch(self):
-        """Fresh states and first obs of every env: env e on pool case
-        ``e % N``, every env's PRNG key ``PRNGKey(seed + 1)``."""
-        E, N = self.ppo.num_envs, len(self.pool)
-        cases = self.pool[np.arange(E) % N]
+        """Fresh states and first obs of every env: global env e on pool
+        case ``e % N``, every env's PRNG key ``PRNGKey(seed + 1)``."""
+        cases = pool_rows(self.pool, self.env_start, self.ppo.num_envs)
         st = autoreset.state_from_case(self.cfg, cases, self.policy_id,
                                        rng=prng.key(self.ppo.seed + 1), device=self.device)
         return env_reset(st, self.cfg, self.sensors, self.states_in_obs, None, self.static_cells)
 
     def init_fn(self, seed: int):
         """``(params, opt_state, states, counters, obs)``: a fresh net drawn
-        from a CPU generator seeded with ``seed``, a fresh optimizer, and every
-        env at the start of its pool case."""
-        params = self.family.net_init(torch.Generator().manual_seed(seed))
+        from a CPU generator seeded with ``seed`` (with a mesh, rank 0's,
+        broadcast), a fresh optimizer, and every env at the start of its
+        pool case, its counter at its global index."""
+        params = replicate_global(self.family.net_init(torch.Generator().manual_seed(seed)),
+                                  self.mesh)
         states, obs = self.reset_batch()
-        counters = torch.arange(self.ppo.num_envs, dtype=torch.int32, device=self.device)
+        counters = torch.arange(self.env_start, self.env_start + self.ppo.num_envs,
+                                dtype=torch.int32, device=self.device)
         return params, optim.init(trainable_params(params)), states, counters, obs
 
     def sample_noise(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """One iteration's draws from ``generator`` (on its device), moved to
-        the trainer's: ``eps`` or ``gumbel`` ``[T, B, k]`` and ``perm
-        [epochs, B]``."""
+        the trainer's: ``eps`` or ``gumbel`` ``[T, B_global, k]``, a row per
+        global sample stream, and ``perm [epochs, B]``.
+
+        Every rank makes the unsharded trainer's draws, in its order (the
+        permutations of the ``B_global`` streams, then the noise), so a
+        stream's noise does not depend on the rank count; a rank reads its
+        rows in :meth:`rollout`.  As under the JAX package's ``shard_map``,
+        every rank shuffles its local streams by one permutation: the order
+        of ``0 .. B - 1`` within the global one (itself uniform, and the
+        global permutation when there is one rank).
+        """
         T, B = self.ppo.horizon, self.B
-        perm = torch.stack([torch.randperm(B, generator=generator, device=generator.device)
+        perm = torch.stack([torch.randperm(self.B_global, generator=generator,
+                                           device=generator.device)
                             for _ in range(self.ppo.epochs)])
-        noise = {self.family.noise: self.family.draw(generator, T, B), "perm": perm}
+        noise = {self.family.noise: self.family.draw(generator, T, self.B_global),
+                 "perm": torch.stack([p[p < B] for p in perm])}
         return {k: v.to(self.device) for k, v in noise.items()}
 
     @torch.no_grad()
@@ -461,13 +492,15 @@ class PPOTrainer:
 
     @torch.no_grad()
     def rollout(self, params, states, counters, obs, noise):
-        """T auto-reset steps, without gradients; returns the carried
-        ``(states, counters, obs)`` and the ``[T, ...]`` stacked samples
-        with the bootstrap ``last_value``."""
+        """T auto-reset steps, without gradients, each with this rank's rows
+        of the step's ``[B_global, k]`` noise; returns the carried ``(states,
+        counters, obs)`` and the ``[T, ...]`` stacked samples with the
+        bootstrap ``last_value``."""
+        rows = slice(self.stream_start, self.stream_start + self.B)
         samples = []
         for t in range(self.ppo.horizon):
             states, counters, obs, sample = self.rollout_step(
-                params, states, counters, obs, noise[self.family.noise][t])
+                params, states, counters, obs, noise[self.family.noise][t, rows])
             samples.append(sample)
         data = {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
         _, data["last_value"] = self.family.net_apply(params, self.flatten_ego(obs))
@@ -495,14 +528,17 @@ class PPOTrainer:
         return loss, (v_loss, frac_clipped)
 
     def gradients(self, params, mb):
-        """Normalise ``mb``'s advantages (alive-weighted), then the loss's
+        """Normalise ``mb``'s advantages (alive-weighted, by the statistics
+        over every rank: ``[sum w, sum a w]`` and then ``sum w d^2`` averaged
+        over the ranks, as the JAX trainer ``pmean``-s them), then the loss's
         gradients by name (:func:`trainable_params`) and the ``(loss,
         value_loss, clip_frac)`` stats."""
         a, w = mb["adv"], mb["alive"]
-        wsum = torch.clamp_min(torch.sum(w), 1.0)
-        mu = torch.sum(a * w) / wsum
+        s = self.mesh.pmean(torch.stack([torch.sum(w), torch.sum(a * w)]))
+        wsum = torch.clamp_min(s[0], 1.0)
+        mu = s[1] / wsum
         d = a - mu
-        var = torch.sum(w * (d * d)) / wsum
+        var = self.mesh.pmean(torch.sum(w * (d * d))) / wsum
         mb = dict(mb, adv=d * torch.reciprocal(maths.sqrt_rn(var + 1e-8)))
         named = trainable_params(params)
         loss, (v_loss, frac) = self.loss_fn(params, mb)
@@ -527,11 +563,13 @@ class PPOTrainer:
                 yield {k: v[m] for k, v in mbs.items()}
 
     def minibatch_step(self, params, opt_state, mb):
-        """One gradient step on minibatch ``mb``: :meth:`gradients`, then the
-        clip-and-Adam chain (``optim.update``), whose updates are added to
-        ``params`` in place.  Returns ``(grads, stats, updates, next
-        opt_state)``."""
+        """One gradient step on minibatch ``mb``: :meth:`gradients`
+        (averaged over the ranks in one flattened ``all_reduce``, so the
+        global-norm clip sees the averaged gradient), then the clip-and-Adam
+        chain (``optim.update``), whose updates are added to ``params`` in
+        place.  Returns ``(grads, stats, updates, next opt_state)``."""
         grads, stats = self.gradients(params, mb)
+        grads = self.mesh.pmean_flat(grads)
         updates, opt_state = optim.update(grads, opt_state, self.ppo.max_grad_norm, self.ppo.lr)
         optim.apply_updates(trainable_params(params), updates)
         return grads, stats, updates, opt_state
@@ -554,7 +592,8 @@ class PPOTrainer:
         Args:
             rng: a ``torch.Generator`` to draw the iteration's noise from
                 (:meth:`sample_noise`), unless ``noise`` gives it.
-            noise: ``{"eps" or "gumbel": [T, B, k], "perm": [epochs, B]}``.
+            noise: ``{"eps" or "gumbel": [T, B_global, k], "perm": [epochs,
+                B]}`` (one rank: ``B_global`` is ``B``).
             timings: a dict to which each phase (``rollout``, ``gae``,
                 ``update``) adds its seconds; the device is synchronised at
                 every boundary and each phase is a ``torch.profiler`` range
@@ -562,7 +601,10 @@ class PPOTrainer:
 
         Returns:
             ``(params, opt_state, states, counters, obs, metrics)``; the net
-            is updated in place and returned.
+            is updated in place and returned.  With a mesh, the four reward
+            and episode metrics are means over the ranks (JAX's ``pmean``:
+            ``episodes_finished`` is then the mean of the ranks' counts), and
+            ``loss``, ``value_loss`` and ``clip_frac`` are this rank's.
         """
         if noise is None:
             if rng is None:
@@ -578,18 +620,19 @@ class PPOTrainer:
             opt_state, stats = self.update(params, opt_state, data, adv, target, noise["perm"])
         go_f = data["game_over"].to(torch.float32)
         live_raw = data["raw_reward"] * data["alive"]
-        episodes = torch.sum(go_f)
+        step_reward, shaped_reward, episodes, live_sum = self.mesh.pmean(torch.stack([
+            torch.mean(live_raw), torch.mean(data["reward"] * data["alive"]), torch.sum(go_f),
+            torch.sum(live_raw)]))
         metrics = {
             "loss": torch.mean(stats[..., 0]),
             "value_loss": torch.mean(stats[..., 1]),
             "clip_frac": torch.mean(stats[..., 2]),
-            "mean_step_reward": torch.mean(live_raw),
-            "mean_shaped_reward": torch.mean(data["reward"] * data["alive"]),
+            "mean_step_reward": step_reward,
+            "mean_shaped_reward": shaped_reward,
             "episodes_finished": episodes,
             # mean raw return per (learner, episode) among the episodes that
             # finished in this rollout (every env reset ends L of them)
-            "mean_return_per_episode": torch.sum(live_raw) / torch.clamp_min(episodes * self.L,
-                                                                               1.0),
+            "mean_return_per_episode": live_sum / torch.clamp_min(episodes * self.L, 1.0),
         }
         return params, opt_state, states, counters, obs, metrics
 
@@ -622,4 +665,28 @@ def make_ppo(ppo: PPOConfig, cfg: Optional[EnvConfig] = None, pool=None,
     CUDA.
     """
     trainer = PPOTrainer(ppo, cfg, pool, sensors, states_in_obs, static_cells, device)
+    return trainer.train_step, trainer.init_fn, trainer.obs_dim
+
+
+def make_sharded_ppo(ppo: PPOConfig, mesh, cfg: Optional[EnvConfig] = None, pool=None,
+                     **kwargs):
+    """Data-parallel PPO over ``mesh`` (a :class:`parallel.mesh.EnvMesh`),
+    with :func:`make_ppo`'s signatures.
+
+    ``ppo.num_envs`` is the global env count, split evenly over the ranks;
+    each rank runs a :class:`PPOTrainer` on its ``num_envs / D`` envs on the
+    mesh's device.  ``init_fn(seed)`` returns this rank's carry: the params
+    (rank 0's, broadcast) and its rows of the global batch; ``train_step``
+    draws the global noise and reads its rows, so the trajectories are the
+    unsharded ones, and averages the advantage statistics and the gradients
+    over the ranks once a minibatch, and the metrics once an iteration.  With
+    more than one minibatch the shuffle is shard-local, as in the JAX
+    package, so the minibatches differ from an unsharded run's by design.
+    ``kwargs`` go to :class:`PPOTrainer` (``sensors``, ``states_in_obs``,
+    ``static_cells``).
+    """
+    if ppo.num_envs % mesh.size:
+        raise ValueError(f"num_envs {ppo.num_envs} not divisible by the {mesh.size}-rank mesh")
+    local = dataclasses.replace(ppo, num_envs=ppo.num_envs // mesh.size)
+    trainer = PPOTrainer(local, cfg, pool, mesh=mesh, **kwargs)
     return trainer.train_step, trainer.init_fn, trainer.obs_dim

@@ -5,8 +5,12 @@ The counterpart of ``scripts/train_ppo.py`` for
 ``gym_collision_avoidance_torch``: rollout (auto-reset in the loop), GAE and
 every optimizer epoch run on the CUDA card, one ``train_step`` per
 iteration.  Same flags, except that ``--device {cuda,cpu}`` (default
-``cuda``, which fails without a card) replaces ``--cpu`` and there is no
-``--devices``.  ``--save``/``--resume`` write and read the whole training
+``cuda``, which fails without a card) replaces ``--cpu``.  ``--devices N``
+trains data-parallel over N ranks, one per card (``cuda:<rank>``, NCCL; with
+``--device cpu``, N gloo CPU ranks), through
+``train.ppo.make_sharded_ppo``: the script starts the N ranks itself, or runs
+as one of them under ``torchrun --nproc-per-node N``.  Only rank 0 prints and
+exports.  ``--save``/``--resume`` write and read the whole training
 carry and the noise generator (``utils/checkpoint.py``), so a resumed run
 continues bitwise; ``--init-params``/``--export-params`` read and write the
 JAX package's parameter ``.npz`` (``convert.ppo_params_*``), so a net moves
@@ -15,7 +19,7 @@ between the two packages either way.
 Usage:
   python scripts/train_ppo_torch.py [--iters 50] [--envs 1024] [--horizon 64]
       [--agents 2] [--traffic noncoop|rvo] [--arch mlp|ga3c|drl_long]
-      [--self-play] [--device cuda|cpu]
+      [--self-play] [--device cuda|cpu] [--devices N]
 """
 
 from __future__ import annotations
@@ -75,11 +79,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pool-side", type=float, default=4.0,
                     help="scenario side length (4.0 matches the frozen evaluation suites)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shard the env axis over N ranks, one per card (NCCL), or N gloo "
+                         "ranks with --device cpu; --envs is the global count")
+    # set by the parent for each rank it starts (parallel.distributed.spawn_local)
+    ap.add_argument("--init-method", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--num-processes", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--process-id", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--save", default=None, metavar="PATH",
                     help="save the training carry and noise generator here at the end "
-                         "(and every 20 iterations)")
+                         "(and every 20 iterations); one device only")
     ap.add_argument("--resume", default=None, metavar="PATH",
-                    help="resume from a --save file (bitwise continuation)")
+                    help="resume from a --save file (bitwise continuation); one device only")
     ap.add_argument("--init-params", default=None, metavar="PATH",
                     help="(--arch ga3c/drl_long) warm-start the net from a parameter .npz "
                          "(this script's or scripts/train_ppo.py's --export-params) with a "
@@ -110,6 +121,14 @@ def main(argv=None) -> int:
         for flag in ("init_params", "export_params"):
             if getattr(args, flag):
                 ap.error(f"--{flag.replace('_', '-')} requires --arch ga3c or drl_long")
+    if args.devices > 1 and (args.save or args.resume):
+        ap.error("--save/--resume keep one device's carry; the env states of a --devices run "
+                 "are sharded over the ranks")
+    if args.envs % args.devices:
+        ap.error(f"--envs {args.envs} does not split over --devices {args.devices}")
+    ranked = args.process_id is not None or "WORLD_SIZE" in os.environ
+    if args.devices > 1 and not ranked:
+        return spawn_ranks(args, argv)
 
     import numpy as np
     import torch
@@ -118,11 +137,21 @@ def main(argv=None) -> int:
     from gym_collision_avoidance_torch.core.device import resolve_device
     from gym_collision_avoidance_torch.policies import registry as P
     from gym_collision_avoidance_torch.scenarios import random_cases
-    from gym_collision_avoidance_torch.train import PPOConfig, make_ppo
+    from gym_collision_avoidance_torch.parallel import distributed as dist
+    from gym_collision_avoidance_torch.train import PPOConfig, make_ppo, make_sharded_ppo
     from gym_collision_avoidance_torch.train.ppo import trainable_params
     from gym_collision_avoidance_torch.utils import checkpoint as ckpt
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.devices > 1:
+        check_visible(args)
+        dist.init_distributed({"cuda": "nccl", "cpu": "gloo"}[args.device],
+                              num_processes=args.num_processes, process_id=args.process_id,
+                              init_method=args.init_method)
+        mesh = dist.global_mesh(args.device)
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
     if args.agents_mix:
         args.agents = max(args.agents_mix)
         pool = random_cases.scenario_pool_mixed(args.pool_cases, args.agents_mix, seed=0,
@@ -136,12 +165,17 @@ def main(argv=None) -> int:
         policy_arch=args.arch, self_play=args.self_play, shaping_coef=args.shaping,
         seed=args.seed, **({} if args.entropy is None else {"entropy_coef": args.entropy}),
     )
-    step, init_fn, obs_dim = make_ppo(ppo, pool=pool, device=device)
+    if mesh is None:
+        step, init_fn, obs_dim = make_ppo(ppo, pool=pool, device=device)
+    else:
+        step, init_fn, obs_dim = make_sharded_ppo(ppo, mesh, pool=pool)
     carry = init_fn(ppo.seed)
+    # every rank draws the same global noise and reads its rows of it
     gen = torch.Generator(device).manual_seed(ppo.seed + 7)
     label = device_label(device.type)
-    print(f"obs_dim={obs_dim} envs={args.envs} horizon={args.horizon} "
-          f"agents={args.agents} traffic={args.traffic} device={label}")
+    say = print if lead else (lambda *a, **k: None)
+    say(f"obs_dim={obs_dim} envs={args.envs} horizon={args.horizon} "
+        f"agents={args.agents} traffic={args.traffic} devices={args.devices} device={label}")
 
     if args.resume:
         *carry, gen = ckpt.load_state(args.resume, tuple(carry) + (gen,))
@@ -154,7 +188,7 @@ def main(argv=None) -> int:
         # the net only: the fresh optimizer state (zero moments, step 0) and
         # fresh envs stay, the curriculum recipe of scripts/train_ppo.py
         carry = [convert.ppo_params_from_numpy(args.arch, arrays, device)] + list(carry[1:])
-        print(f"warm-started params from {args.init_params}")
+        say(f"warm-started params from {args.init_params}")
 
     carry = list(carry)
     t0 = time.time()
@@ -166,20 +200,49 @@ def main(argv=None) -> int:
             ckpt.save_state(args.save, tuple(carry) + (gen,))
         if i % max(1, args.iters // 20) == 0 or i == args.iters - 1:
             dt = time.time() - t0
-            print(f"iter {i:4d}  return/ep {float(m['mean_return_per_episode']):+.3f}"
-                  f"  episodes {float(m['episodes_finished']):.0f}"
-                  f"  clip {float(m['clip_frac']):.3f}"
-                  f"  env-steps/s {steps_done / dt:.3g} ({label})", flush=True)
+            say(f"iter {i:4d}  return/ep {float(m['mean_return_per_episode']):+.3f}"
+                f"  episodes {float(m['episodes_finished']):.0f}"
+                f"  clip {float(m['clip_frac']):.3f}"
+                f"  env-steps/s {steps_done / dt:.3g} ({label})", flush=True)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
-    print(f"total: {steps_done} env-steps in {dt:.1f}s = {steps_done / max(dt, 1e-9):.3g} "
-          f"env-steps/s on {label}")
+    say(f"total: {steps_done} env-steps in {dt:.1f}s = {steps_done / max(dt, 1e-9):.3g} "
+        f"env-steps/s on {args.devices} x {label}")
     if args.save:
         print(f"saved {ckpt.save_state(args.save, tuple(carry) + (gen,))}")
-    if args.export_params:
+    if args.export_params and lead:
         np.savez(args.export_params, **convert.ppo_params_to_numpy(args.arch, carry[0]))
         print(f"exported {args.export_params}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_visible(args):
+    """Raise unless ``--devices`` cards are visible (with ``--device cuda``)."""
+    import torch
+
+    if args.device == "cuda" and torch.cuda.device_count() < args.devices:
+        raise RuntimeError(f"--devices {args.devices}, but {torch.cuda.device_count()} CUDA "
+                           "cards are visible")
+
+
+def spawn_ranks(args, argv) -> int:
+    """Start ``--devices`` ranks of this script with the same flags and wait
+    for them."""
+    from gym_collision_avoidance_torch.core.device import resolve_device
+    from gym_collision_avoidance_torch.parallel import distributed as dist
+
+    resolve_device(args.device)
+    check_visible(args)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    try:
+        dist.spawn_local([sys.executable, os.path.abspath(__file__), *argv], args.devices,
+                         threads=None if args.device == "cuda" else 1)
+    except dist.RankFailed as err:
+        print(err, file=sys.stderr)
+        return 1
     return 0
 
 

@@ -21,7 +21,8 @@ for name in ("maps.grid", "ops.pairwise", "ops.raymarch", "ops.laser_fused", "op
              "policies.cadrl", "models.drl_long", "policies.drl_long", "harness.paths",
              "train.ppo", "train.optim", "utils.checkpoint", "scenarios.suites",
              "harness.experiments", "harness.registry", "harness.datasets",
-             "harness.visualize", "env.gymapi", "obs.wrappers"):
+             "harness.visualize", "env.gymapi", "obs.wrappers", "parallel.mesh",
+             "parallel.distributed", "utils.profiling"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gym_collision_avoidance_tpu"))
@@ -50,6 +51,23 @@ def test_chip_smoke_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=repo_root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_launcher_imports_no_jax():
+    """``scripts/launch_multihost_torch.py`` runs a rank of the distributed
+    rollout on the CPU without importing jax or the JAX package."""
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import importlib.util, sys\n"
+            "spec = importlib.util.spec_from_file_location('launch', "
+            "'scripts/launch_multihost_torch.py')\n"
+            "launch = importlib.util.module_from_spec(spec); spec.loader.exec_module(launch)\n"
+            "assert launch.main(['--device', 'cpu', '--num-envs', '4', '--steps', '2']) == 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'gym_collision_avoidance_tpu'))\n"
+            "assert not bad, bad\nprint('ok')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo_root, capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
 
 
 def test_training_cli_imports_no_jax():
@@ -209,3 +227,19 @@ def test_harness_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                            "--agents", "2", "--policies", "RVO", "--out", "/nonexistent/x"],
                           cwd=repo_root, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
+
+
+def test_mesh_and_launcher_default_to_cuda_and_raise_without_it(no_cuda):
+    """``make_mesh()``, ``global_mesh()`` and the launcher use the card unless
+    told otherwise, and raise without one: no CPU fallback."""
+    from gym_collision_avoidance_torch.parallel import distributed, mesh
+
+    for call in (mesh.make_mesh, distributed.global_mesh):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for extra in ([], ["--spawn", "2"]):
+        proc = subprocess.run([sys.executable, "scripts/launch_multihost_torch.py",
+                               "--num-envs", "4", "--steps", "2", *extra], cwd=repo_root,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0 and "CUDA is not available" in proc.stderr, extra

@@ -196,10 +196,6 @@ def test_unported_pieces_raise():
     moved = tstate.apply_external_states(st, cfg, np.full((1, 2, 2), 0.5),
                                          mask=np.array([[True, False]]))
     assert moved.pos[0, 0].tolist() == [0.5, 0.5] and moved.pos[0, 1].tolist() == [0.0, 0.0]
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tstate.init_state(cfg.replace(strict_parity=True), np.zeros((1, 2, 2)),
-                          np.ones((1, 2, 2)), np.full((1, 2), 0.3), np.ones((1, 2)),
-                          device="cpu")
     # static maps and the laserscan are ported; a laserscan without a map
     # or a cell list is a usage error, as in the JAX package
     with pytest.raises(ValueError, match="static_map"):
