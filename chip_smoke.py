@@ -15,7 +15,15 @@ boundaries, map edges, hosts inside discs, map 002, in both dtypes), and
 those files' models of the kernels' designs count the work behind their
 bounds.  Every kernel row also carries the launch floor: the device time of
 one ``fill_`` of K1's output bytes, the least a launch costs in a CUDA
-graph.  Then it drives the port's paths
+graph.  K1 is held and timed alone and with its reward epilogue (the env
+step's whole reward stage, the one launch ``_compute_rewards`` makes), each
+in its layout and one thread a row, at ``[16384, 4]``, ``[256, 20]`` and
+``[512, 40]``, beside the previous route (K1, then the plain reward chain's
+launches), and the main path runs on both routes in turns (previous, fused,
+fused, previous: env-steps/s and one traced dispatch each, kernels a step
+and the kernels only one route launches).  Every in-path capture below
+holds K1's four outputs (collision, nearest gap, reward, latched
+``in_collision``) bitwise.  Then it drives the port's paths
 through ``AutoresetServer``, each with the kernel launch counts set to 0 just
 before and read just after:
 
@@ -216,23 +224,123 @@ def phase_build(build):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def hold_k1(pairwise, args, coll, near, what):
-    """K1's outputs ``coll, near`` on ``args`` against its plain version:
-    collision flags equal, nearest gaps bitwise equal (NaN where it has
-    NaN); returns the largest gap difference."""
-    ref_coll, ref_near = pairwise.pairwise_collisions_plain(*args)
-    check(torch.equal(coll, ref_coll), f"K1 collision flags differ ({what})")
-    finite = ~torch.isnan(ref_near)
-    check(torch.equal(torch.isnan(near), ~finite), f"K1 NaN pattern differs ({what})")
-    itype = torch.int32 if near.dtype == torch.float32 else torch.int64
-    check(torch.equal(near[finite].view(itype), ref_near[finite].view(itype)),
-          f"K1 nearest gaps not bitwise equal ({what})")
-    return max_abs_err(near, ref_near)
+def reward_inputs(seed, E, A, dtype, device, nan=False, wall=False):
+    """Seeded arguments of ``pairwise_rewards``: K1's inputs
+    (:func:`pairwise_inputs`), ~20% of agents at their goal, ~15% in
+    collision, random past actions and, if ``wall``, a wall mask on ~10%;
+    the config turns wiggly turns on, so every branch of the chain is taken."""
+    from gym_collision_avoidance_torch import EnvConfig
+
+    pos, radius, valid = pairwise_inputs(seed, E, A, dtype, device, nan)
+    rng = np.random.RandomState(seed + 1)
+    at_goal, in_coll = rng.rand(E, A) < 0.2, rng.rand(E, A) < 0.15
+    # is_at_goal, was_at_goal_already, was_in_collision_already, in_collision
+    flags = [torch.tensor(f, device=device) for f in (
+        at_goal, at_goal & (rng.rand(E, A) < 0.5), in_coll & (rng.rand(E, A) < 0.5), in_coll)]
+    past = torch.tensor(rng.uniform(-1, 1, (E, A, 3, 2)), dtype=dtype, device=device)
+    mask = torch.tensor(rng.rand(E, A) < 0.1, device=device) if wall else None
+    cfg = EnvConfig(dtype=str(dtype)[6:], reward_wiggly_behavior=-0.2,
+                    wiggly_behavior_threshold=0.3)
+    return (pos, radius, valid, *flags, past, mask, cfg)
+
+
+def hold_k1(plain, args, outs, what):
+    """K1's outputs ``outs`` on ``args`` against ``plain(*args)`` (K1's
+    ``pairwise_collisions_plain``, or ``pairwise_rewards_plain`` for the
+    launch with the reward epilogue): flags equal, nearest gaps and rewards
+    bitwise equal (NaN where the plain version has NaN); returns the
+    largest float difference."""
+    want = plain(*args)
+    check(len(outs) == len(want), f"K1 returned {len(outs)} outputs ({what})")
+    worst = 0.0
+    for k, (got, ref) in enumerate(zip(outs, want)):
+        check(got.dtype == ref.dtype and got.shape == ref.shape,
+              f"K1 output {k}: {got.dtype} {tuple(got.shape)} ({what})")
+        if got.dtype == torch.bool:
+            check(torch.equal(got, ref), f"K1 output {k}: flags differ ({what})")
+            continue
+        finite = ~torch.isnan(ref)
+        check(torch.equal(torch.isnan(got), ~finite), f"K1 output {k}: NaN pattern differs ({what})")
+        itype = torch.int32 if got.dtype == torch.float32 else torch.int64
+        check(torch.equal(got[finite].view(itype), ref[finite].view(itype)),
+              f"K1 output {k} not bitwise equal ({what})")
+        worst = max(worst, max_abs_err(got, ref))
+    return worst
+
+
+def moved_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# K1's shapes: the main path, the laser path (with its map's wall mask),
+# LargeNumAgents (scripts/bench_all.py's ga3c40), and, for the layout sweep,
+# ga3c4's and cadrl4's [4096, 4] and the 2-agent training paths' [1024, 2]
+K1_SHAPES = ((E_MAIN, A_MAIN, False), (E_LASER, A_LASER, True), (512, 40, False),
+             (4096, 4, False), (1024, 2, False))
+K1_LANES = (1, 2, 4, 8, 16, 32)     # threads a row, in the layout sweep
+
+
+def previous_reward_route(pairwise):
+    """The reward stage as the port ran it before the epilogue was fused:
+    K1's kernel, then the plain chain as separate launches on the card.
+    Composed here only, to measure against."""
+    def route(*args):
+        coll, near = pairwise.pairwise_collisions_cuda(*args[:3])
+        return (coll, near, *pairwise.reward_chain_plain(coll, near, *args[2:]))
+    return route
+
+
+def time_k1_shape(pairwise, E, A, wall):
+    """Device ms (CUDA-graph replay) and bytes bounds of K1 alone and of its
+    launch with the reward epilogue, in the layout ``lanes_for`` picks and in
+    every layout of K1_LANES (each held bitwise first), of both plain
+    versions and of the previous route, on seeded inputs of shape
+    ``[E, A]``."""
+    args = reward_inputs(8, E, A, torch.float32, DEVICE, wall=wall)
+    k1_args = args[:3]
+    layouts = {}
+    for lanes in K1_LANES:
+        hold_k1(pairwise.pairwise_collisions_plain, k1_args,
+                pairwise.pairwise_collisions_cuda(*k1_args, lanes=lanes),
+                f"E={E} A={A} lanes={lanes}")
+        hold_k1(pairwise.pairwise_rewards_plain, args,
+                pairwise.pairwise_rewards_cuda(*args, lanes=lanes),
+                f"rewards E={E} A={A} lanes={lanes}")
+        layouts[lanes] = {
+            "k1_ms": graph_ms(lambda: pairwise.pairwise_collisions_cuda(*k1_args, lanes=lanes)),
+            "fused_ms": graph_ms(lambda: pairwise.pairwise_rewards_cuda(*args, lanes=lanes))}
+    previous = previous_reward_route(pairwise)
+    line = {"shape": [E, A], "wall": wall, "lanes": pairwise.lanes_for(A),
+            "k1_ms": graph_ms(lambda: pairwise.pairwise_collisions_cuda(*k1_args)),
+            "k1_plain_ms": graph_ms(lambda: pairwise.pairwise_collisions_plain(*k1_args)),
+            "fused_ms": graph_ms(lambda: pairwise.pairwise_rewards_cuda(*args)),
+            "fused_plain_ms": graph_ms(lambda: pairwise.pairwise_rewards_plain(*args)),
+            "previous_route_ms": graph_ms(lambda: previous(*args)), "layouts": layouts}
+    coll, near, reward, latched = pairwise.pairwise_rewards_plain(*args)
+    pos, radius, valid, past = args[0], args[1], args[2], args[7]
+    k1_bytes = moved_bytes(pos, radius, valid, coll, near)
+    # the epilogue reads the four flags, the wall mask and past_actions[..., 0, 1]
+    fused_bytes = k1_bytes + moved_bytes(*args[3:7], args[8], reward, latched) + \
+        E * A * past.element_size()
+    # per valid ordered pair: 2 sub, 2 mul, add, sqrt, add, sub, 2 compares;
+    # the epilogue about 12 a row
+    n = valid.sum(dim=1)
+    pair_ops = 10 * float((n * (n - 1)).sum())
+    for key, nbytes, ops in (("k1", k1_bytes, pair_ops),
+                             ("fused", fused_bytes, pair_ops + 12 * E * A)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+        line[f"{key}_bytes"] = nbytes
+        line[f"{key}_bound_ms"] = max(t_bytes, t_ops) * 1e3
+        line[f"{key}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return line
 
 
 def phase_kernels(pairwise):
-    """Hold K1 bitwise against the plain version; time both at the main
-    path's shape, on the device (CUDA graph replay) and as eager calls."""
+    """Hold K1 bitwise against its plain version, alone and with its reward
+    epilogue (the launch the env step makes); time both at K1_SHAPES in
+    every layout, on the device (CUDA graph replay) and, at the main path's
+    shape, as eager calls beside the previous route (K1, then the plain
+    chain)."""
     worst = 0.0
     cases = [(torch.float32, E_MAIN, A_MAIN, False), (torch.float32, 512, 40, False),
              (torch.float64, 64, 4, False), (torch.float32, 64, 4, True)]
@@ -240,39 +348,55 @@ def phase_kernels(pairwise):
         args = pairwise_inputs(7, E, A, dtype, DEVICE, nan)
         coll, near = pairwise.pairwise_collisions(*args)
         torch.cuda.synchronize()
-        worst = max(worst, hold_k1(pairwise, args, coll, near, f"{dtype} E={E} A={A} nan={nan}"))
+        worst = max(worst, hold_k1(pairwise.pairwise_collisions_plain, args, (coll, near),
+                                   f"{dtype} E={E} A={A} nan={nan}"))
         if not nan:
             touching = args[2][::4, 0] & args[2][::4, 1]
             check(bool(coll[::4, 0][touching].all()), "touching pairs must collide")
         print(f"K1 {str(dtype)[6:]} E={E} A={A} nan={nan}: bitwise equal", flush=True)
+    reward_cases = [(torch.float32, E_MAIN, A_MAIN, False, False),
+                    (torch.float32, E_LASER, A_LASER, False, True),
+                    (torch.float32, 512, 40, False, False), (torch.float32, 64, 2, False, True),
+                    (torch.float64, 64, 4, False, True), (torch.float64, 512, 40, False, False),
+                    (torch.float32, 64, 4, True, True), (torch.float64, 64, 4, True, False)]
+    for dtype, E, A, nan, wall in reward_cases:
+        args = reward_inputs(7, E, A, dtype, DEVICE, nan, wall)
+        before = pairwise.LAUNCHES
+        outs = pairwise.pairwise_rewards(*args)
+        torch.cuda.synchronize()
+        check(pairwise.LAUNCHES == before + 1, "pairwise_rewards: one launch")
+        worst = max(worst, hold_k1(pairwise.pairwise_rewards_plain, args, outs,
+                                   f"rewards {dtype} E={E} A={A} nan={nan} wall={wall}"))
+        check(outs[3] is not args[6], "the latch must be a new tensor")
+        print(f"K1 with rewards {str(dtype)[6:]} E={E} A={A} nan={nan} wall={wall}: "
+              f"bitwise equal", flush=True)
 
-    pos, radius, valid = pairwise_inputs(8, E_MAIN, A_MAIN, torch.float32, DEVICE)
-    kernel = lambda: pairwise.pairwise_collisions_cuda(pos, radius, valid)  # noqa: E731
-    plain = lambda: pairwise.pairwise_collisions_plain(pos, radius, valid)  # noqa: E731
-    ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+    shapes = [time_k1_shape(pairwise, E, A, wall) for E, A, wall in K1_SHAPES]
+    main = shapes[0]
     # the least one launch costs: a fill of K1's output bytes, in a graph
     floor_buf = torch.empty(E_MAIN * A_MAIN * 5, dtype=torch.uint8, device=DEVICE)
     launch_floor_ms = graph_ms(lambda: floor_buf.fill_(0))
-    # the same calls issued eagerly, host overhead included
-    eager_ms, plain_eager_ms = median_ms(kernel), median_ms(plain)
-    coll, near = pairwise.pairwise_collisions_plain(pos, radius, valid)
-    moved = sum(t.numel() * t.element_size() for t in (pos, radius, valid, coll, near))
-    # per valid ordered pair: 2 sub, 2 mul, add, sqrt, add, sub, 2 compares
-    n = valid.sum(dim=1)
-    ops = 10 * float((n * (n - 1)).sum())
-    bound_ms = max(moved / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
-    bound_by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations"
-    summary = {"kernel": "pairwise_collisions", "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "library_ms": None, "launches_per_step": 1,
-               "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
-               "launch_floor_ms": launch_floor_ms}
+    # the same calls issued eagerly at the main path's shape, host overhead included
+    args = reward_inputs(8, E_MAIN, A_MAIN, torch.float32, DEVICE)
+    previous = previous_reward_route(pairwise)
+    eager = {"k1_eager_ms": median_ms(lambda: pairwise.pairwise_collisions_cuda(*args[:3])),
+             "fused_eager_ms": median_ms(lambda: pairwise.pairwise_rewards_cuda(*args)),
+             "previous_route_eager_ms": median_ms(lambda: previous(*args)),
+             "fused_plain_eager_ms": median_ms(lambda: pairwise.pairwise_rewards_plain(*args))}
+    summary = {"kernel": "pairwise_collisions", "launch_floor_ms": launch_floor_ms,
+               "library_ms": None, "launches_per_step": 1, **eager, "by_shape": shapes}
     print(json.dumps(summary), flush=True)
     return {"name": "pairwise_collisions", "route": "cuda",
             "source": "gym_collision_avoidance_torch/csrc/pairwise.cu",
             "replaces": "gym_collision_avoidance_tpu/ops/pairwise.py:77",
-            "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "launch_floor_ms": launch_floor_ms}
+            "entry": "pairwise_rewards (K1 with the reward epilogue, at the main path's shape)",
+            "launches": None, "max_abs_err": worst, "ms": main["fused_ms"],
+            "plain_ms": main["fused_plain_ms"], "bound_ms": main["fused_bound_ms"],
+            "bound_by": main["fused_bound_by"], "library_ms": None,
+            "launch_floor_ms": launch_floor_ms,
+            "k1_alone": {k[3:]: main[k] for k in ("k1_ms", "k1_plain_ms", "k1_bound_ms",
+                                                  "k1_bound_by")},
+            "by_shape": shapes}
 
 
 def serving_path(name):
@@ -328,6 +452,83 @@ def phase_serving(name, kernels, path, laser=None, steps=STEPS_PER_DISPATCH,
         line["steps_with_overflow"] = int(out["exactness_overflow"].sum())
     print(json.dumps({name: line}), flush=True)
     return launches, server.states()
+
+
+AB_STEPS, AB_DISPATCHES = 32, 3     # per turn of the reward-route A/B
+
+
+@contextlib.contextmanager
+def reward_route(pairwise, route):
+    """Run the block with ``pairwise.pairwise_rewards_cuda`` replaced by
+    ``route``."""
+    orig = pairwise.pairwise_rewards_cuda
+    pairwise.pairwise_rewards_cuda = route
+    try:
+        yield
+    finally:
+        pairwise.pairwise_rewards_cuda = orig
+
+
+def traced_dispatch(server, steps):
+    """Kernels a step, device busy ms a step and kernel counts by name of
+    one traced dispatch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server.dispatch()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0) + 1
+    return {"kernels_per_step": len(kernels) / steps,
+            "device_busy_ms_per_step": sum(e.time_range.elapsed_us() for e in kernels)
+            / 1e3 / steps}, by_name
+
+
+def phase_reward_ab(pairwise):
+    """The main path's server with the reward stage on the previous route
+    (K1's kernel, then the plain chain's launches) and on the fused launch,
+    in turns (previous, fused, fused, previous): env-steps/s of each turn,
+    then one traced dispatch of each route (kernels and device busy ms a
+    step, and the kernels by name that only one route launches)."""
+    routes = {"previous": previous_reward_route(pairwise),
+              "fused": pairwise.pairwise_rewards_cuda}
+    server = serving_path("main").server(steps_per_dispatch=AB_STEPS, device=DEVICE)
+    num_envs = serving_path("main").num_envs
+    rates = {name: [] for name in routes}
+    for name in ("previous", "fused", "fused", "previous"):
+        with reward_route(pairwise, routes[name]):
+            server.dispatch()                           # warm-up after the switch
+            torch.cuda.synchronize()
+            pairwise.LAUNCHES = 0
+            t0 = time.perf_counter()
+            for _ in range(AB_DISPATCHES):
+                server.dispatch()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            steps = AB_DISPATCHES * AB_STEPS
+            check(pairwise.LAUNCHES == steps,
+                  f"reward A/B {name}: K1 launched {pairwise.LAUNCHES} times in {steps} steps")
+            rates[name].append(steps * num_envs / seconds)
+    traced, names = {}, {}
+    for name, route in routes.items():
+        with reward_route(pairwise, route):
+            traced[name], names[name] = traced_dispatch(server, AB_STEPS)
+    # kernels a step that one route launches more often than the other
+    only = {a: {k: (n - names[b].get(k, 0)) / AB_STEPS for k, n in names[a].items()
+                if names[b].get(k, 0) < n}
+            for a, b in (("previous", "fused"), ("fused", "previous"))}
+    check(traced["fused"]["kernels_per_step"] < traced["previous"]["kernels_per_step"],
+          f"reward A/B: the fused route launches no fewer kernels: {traced}")
+    ratio = float(np.mean(rates["fused"]) / np.mean(rates["previous"]))
+    print(json.dumps({"reward_ab": {
+        "num_envs": num_envs, "steps_per_turn": AB_DISPATCHES * AB_STEPS,
+        "order": ["previous", "fused", "fused", "previous"],
+        "env_steps_per_s": rates, "fused_over_previous": ratio, "traced": traced,
+        "kernels_per_step_only_in": {a: {k[:80]: v for k, v in d.items()}
+                                     for a, d in only.items()}}}), flush=True)
 
 
 ANGLE_LEAVES = ("state.heading_ego_frame", "obs.heading_ego_frame")
@@ -1377,17 +1578,18 @@ def phase_kernels_on_training():
         params, _, states, counters, obs = path.init(trainer)
         noise = trainer.sample_noise(torch.Generator(DEVICE).manual_seed(5))
         k1_calls, k1_outs, k2_calls, k2_outs = [], [], [], []
-        with capture(pairwise, "pairwise_collisions_cuda", k1_calls, k1_outs), \
+        with capture(pairwise, "pairwise_rewards_cuda", k1_calls, k1_outs), \
                 capture(raymarch, "raymarch_cuda", k2_calls, k2_outs):
             trainer.rollout(params, states, counters, obs, noise)
         torch.cuda.synchronize()
         check(len(k1_calls) == TRAIN_CHECK_STEPS,
               f"{name}: {TRAIN_CHECK_STEPS} rollout steps launched K1 {len(k1_calls)} times")
-        for t, (args, (coll, near)) in enumerate(zip(k1_calls, k1_outs)):
-            hold_k1(pairwise, args, coll, near, f"{name} rollout step {t}")
+        for t, (args, outs) in enumerate(zip(k1_calls, k1_outs)):
+            hold_k1(pairwise.pairwise_rewards_plain, args, outs, f"{name} rollout step {t}")
         line = {"k1_shape": list(k1_calls[0][0].shape), "k1_steps": len(k1_calls),
                 "k1_bitwise_equal": True,
-                "k1_colliding": int(sum(int(c.sum()) for c, _ in k1_outs))}
+                "k1_colliding": int(sum(int(o[0].sum()) for o in k1_outs)),
+                "rewards_and_latch_bitwise_equal": True}
         want_k2 = TRAIN_CHECK_STEPS if name == "train_drl2" else 0
         check(len(k2_calls) == want_k2, f"{name}: K2 launched {len(k2_calls)} times")
         for t, (args, out) in enumerate(zip(k2_calls, k2_outs)):
@@ -1583,7 +1785,7 @@ def phase_suite_k1():
         for name in paths.SUITE_PATHS:
             scenarios, cfg, params = suite_cell(name, DEVICE, agents)
             calls, outs = [], []
-            with capture(pairwise, "pairwise_collisions_cuda", calls, outs):
+            with capture(pairwise, "pairwise_rewards_cuda", calls, outs):
                 experiments.run_episode_batch(scenarios, cfg, params,
                                               chunk_steps=SUITE_K1_STEPS,
                                               max_steps=SUITE_K1_STEPS, device=DEVICE)
@@ -1591,8 +1793,8 @@ def phase_suite_k1():
             cell = f"{paths.SUITE_PATHS[name]} at {agents} agents"
             check(len(calls) == SUITE_K1_STEPS,
                   f"{cell}: {SUITE_K1_STEPS} steps launched K1 {len(calls)} times")
-            for t, (args, (coll, near)) in enumerate(zip(calls, outs)):
-                hold_k1(pairwise, args, coll, near, f"{cell} step {t}")
+            for t, (args, out) in enumerate(zip(calls, outs)):
+                hold_k1(pairwise.pairwise_rewards_plain, args, out, f"{cell} step {t}")
             shape = list(calls[0][0].shape)
             check(shape == [paths.SUITE_CASES, agents, 2], f"{cell}: K1 ran at {shape}")
             result[cell] = {"k1_shape": shape, "k1_steps": len(calls),
@@ -1628,7 +1830,7 @@ def gym_episode(label, make_env, max_steps):
     for step in range(1, max_steps + 1):
         card.state = cpu.state.to(DEVICE)
         want = env_step_outputs(cpu, *cpu.step()[:3])
-        with capture(pairwise, "pairwise_collisions_cuda", calls, outs) if step == 1 \
+        with capture(pairwise, "pairwise_rewards_cuda", calls, outs) if step == 1 \
                 else contextlib.nullcontext():
             got = env_step_outputs(card, *card.step()[:3])
         slack, _turn, _apart = goal_frame_slack(want, got)
@@ -1639,7 +1841,7 @@ def gym_episode(label, make_env, max_steps):
             break
     check(bool(want[3][0]), f"gymapi {label}: no game over in {max_steps} steps")
     check(len(calls) == 1, f"gymapi {label}: the first step launched K1 {len(calls)} times")
-    hold_k1(pairwise, calls[0], *outs[0], f"gymapi {label} step 1")
+    hold_k1(pairwise.pairwise_rewards_plain, calls[0], outs[0], f"gymapi {label} step 1")
     k1_shape = list(calls[0][0].shape)
     A = card.state.pos.shape[1]
     check(k1_shape == [1, A, 2], f"gymapi {label}: K1 ran at {k1_shape}")
@@ -1763,16 +1965,17 @@ def zero_counts(kernels):
 
 @contextlib.contextmanager
 def held_k1(mesh, what, held):
-    """Capture K1's launches in the block and hold its first two bitwise
-    against the plain version; appends ``{"shape", "max_abs_err"}`` to
-    ``held``."""
+    """Capture K1's launches (with the reward epilogue) in the block and
+    hold the first two bitwise against the plain version; appends
+    ``{"shape", "max_abs_err"}`` to ``held``."""
     from gym_collision_avoidance_torch.ops import pairwise
 
     calls, outs = [], []
-    with capture(pairwise, "pairwise_collisions_cuda", calls, outs):
+    with capture(pairwise, "pairwise_rewards_cuda", calls, outs):
         yield
     check(len(calls) >= 2, f"{what}: K1 launched {len(calls)} times")
-    err = max(hold_k1(pairwise, calls[i], *outs[i], f"{what} rank {mesh.rank} launch {i}")
+    err = max(hold_k1(pairwise.pairwise_rewards_plain, calls[i], outs[i],
+                      f"{what} rank {mesh.rank} launch {i}")
               for i in range(2))
     held.append({"shape": list(calls[0][0].shape[:2]), "max_abs_err": err})
 
@@ -2309,6 +2512,7 @@ def main():
                                serving_path(name),
                                laser="raymarch" if name == "drl2" else None,
                                steps=POLICY_STEPS, dispatches=POLICY_DISPATCHES)
+    run("reward_ab", phase_reward_ab, pairwise)
     run("card_vs_cpu", phase_card_vs_cpu)
     run("policy_card_vs_cpu", phase_policy_card_vs_cpu)
     run("networks", phase_networks)

@@ -7,7 +7,8 @@ The JAX step is written for one env and vmapped; this one takes
 
 1. action selection,
 2. dynamics with done-freezing and ``was_*`` latching,
-3. rewards from the new positions, with collision latching (kernel K1),
+3. rewards from the new positions, with collision latching (kernel K1
+   and its reward epilogue, one launch on the card),
 4. sensing and observation assembly,
 5. done flags and the per-env game-over reduction.
 
@@ -112,47 +113,20 @@ def _on_device(x, dtype, device):
 
 def _compute_rewards(state: EnvState, cfg: EnvConfig, static_map=None):
     """Reward shaping + collision latching
-    (envs/collision_avoidance_env.py:394-456).  The pairwise geometry is
-    kernel K1 (:mod:`gym_collision_avoidance_torch.ops.pairwise`)."""
-    collision_with_agent, dist_nearest = pairwise.pairwise_collisions(
-        state.pos.contiguous(), state.radius.contiguous(), state.valid.contiguous()
-    )
+    (envs/collision_avoidance_env.py:394-456): one launch of kernel K1 with
+    its reward epilogue on the card
+    (:func:`gym_collision_avoidance_torch.ops.pairwise.pairwise_rewards`),
+    after the wall test on map paths."""
+    wall = None
     if cfg.use_static_map and static_map is not None:
-        collision_with_wall = map_grid.wall_collisions(
-            static_map, state.pos, state.radius, state.valid, cfg)
-    else:
-        collision_with_wall = torch.zeros_like(collision_with_agent)
-
-    r = torch.full(state.radius.shape, cfg.reward_time_step,
-                   dtype=state.pos.dtype, device=state.pos.device)
-    goal_now = state.is_at_goal & ~state.was_at_goal_already
-    r = torch.where(goal_now, torch.full_like(r, cfg.reward_at_goal), r)
-
-    eligible = ~state.is_at_goal & ~state.was_in_collision_already
-    hit_agent = eligible & collision_with_agent
-    hit_wall = eligible & ~collision_with_agent & collision_with_wall
-    r = torch.where(hit_agent, torch.full_like(r, cfg.reward_collision_with_agent), r)
-    r = torch.where(hit_wall, torch.full_like(r, cfg.reward_collision_with_wall), r)
-
-    no_hit = eligible & ~collision_with_agent & ~collision_with_wall
-    close = no_hit & (dist_nearest <= cfg.getting_close_range)
-    # The -0.1 - d/2 shaping is hard-coded in the reference (":438-440").
-    r = torch.where(close, cfg.reward_getting_close - dist_nearest / 2.0, r)
-    wiggly = no_hit & (torch.abs(state.past_actions[..., 0, 1]) > cfg.wiggly_behavior_threshold)
-    r = torch.where(wiggly, r + cfg.reward_wiggly_behavior, r)
-
-    # Clip to the min/max possible single-step reward (":451-453, 589-599").
-    possible = [
-        cfg.reward_at_goal,
-        cfg.reward_collision_with_agent,
-        cfg.reward_time_step,
-        cfg.reward_collision_with_wall,
-        cfg.reward_wiggly_behavior,
-    ]
-    r = torch.clamp(r, min(possible), max(possible))
-    r = torch.where(state.valid, r, torch.zeros_like(r))
-
-    return state.replace(in_collision=state.in_collision | hit_agent | hit_wall), r
+        wall = map_grid.wall_collisions(
+            static_map, state.pos, state.radius, state.valid, cfg).contiguous()
+    _, _, r, in_collision = pairwise.pairwise_rewards(
+        *(t.contiguous() for t in (
+            state.pos, state.radius, state.valid, state.is_at_goal, state.was_at_goal_already,
+            state.was_in_collision_already, state.in_collision, state.past_actions)),
+        wall, cfg)
+    return state.replace(in_collision=in_collision), r
 
 
 def normalize_sensor_spec(sensors, num_agents: int):
