@@ -83,6 +83,29 @@ rollout and train_mlp2's sharded trainer, each held against one rank on the
 card; 1 NCCL rank runs the same rollout.  The strict-parity route runs
 card against CPU.  Each phase prints its seconds.
 
+Then the JAX repo's entry points as the port runs them, each with the launch
+counts set to 0 before and read after, and the card's ``nvidia-smi`` line
+beside its numbers:
+
+* eval_drl_long: ``scripts/eval_drl_long_torch.py`` at the script's width
+  (the shipped DRL-Long net against RVO, the 500 frozen 2-agent cases,
+  E = 500, 250 steps; K1 and K2), every case's outcome held against the JAX
+  script's (``tests/data/torch_drl_long_jax_outcomes.json``), a differing
+  case replayed and failing the phase;
+* eval_trained_net: ``scripts/eval_trained_net_torch.py`` on the shipped
+  flagship ``ppo_selfplay_10agent_tpu`` over the 2-, 3- and 4-agent cells
+  (K1), held against the JAX package's outcomes by ``compare_outcomes``; and
+  the net the train_ga3c4 phase trained, exported and scored on the 4-agent
+  cell;
+* reinforce: ``scripts/train_example_torch.py`` at its defaults (E = 256,
+  T = 40; K1), one iteration held against the CPU's from the same draws,
+  then timed iterations;
+* sharded_resume (in the rank jobs, 2 gloo ranks and 1 NCCL rank):
+  train_mlp2's trainer for 2 iterations against 1, a save, a resume and 1
+  more, bitwise in every leaf of the saved carry.
+
+K1's (and on eval_drl_long K2's) first launches in each are held bitwise.
+
 It checks the fast route against the full pass wherever its exactness guard
 is quiet, and one env step on the card against the same step on the CPU,
 each env on its own pool case: on the main path, on ga3c4, orca4, cadrl4
@@ -100,6 +123,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
@@ -930,16 +954,18 @@ def phase_networks():
 # ---------------------------------------------------------------- laser path
 
 @contextlib.contextmanager
-def capture(module, name, calls, outs=None):
+def capture(module, name, calls, outs=None, limit=None):
     """Record the arguments of every call of ``module.name`` in ``calls``,
-    and its results in ``outs`` if given."""
+    and its results in ``outs`` if given; of the first ``limit`` calls only,
+    if given."""
     orig = getattr(module, name)
 
     def spy(*args):
-        calls.append(args)
         out = orig(*args)
-        if outs is not None:
-            outs.append(out)
+        if limit is None or len(calls) < limit:
+            calls.append(args)
+            if outs is not None:
+                outs.append(out)
         return out
 
     setattr(module, name, spy)
@@ -1268,17 +1294,6 @@ def phase_laser_card_vs_cpu():
 # ------------------------------------------------------------ training
 
 
-def profiler_module():
-    """``scripts/profile_torch_serving.py``, whose ``trace_iteration``
-    traces one PPO iteration."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    spec = importlib.util.spec_from_file_location(
-        "profile_torch_serving", os.path.join(root, "scripts", "profile_torch_serving.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 def finite_metrics(name, metrics):
     values = {k: float(v) for k, v in metrics.items()}
     check(all(math.isfinite(v) for v in values.values()), f"{name}: non-finite metric {values}")
@@ -1291,7 +1306,7 @@ def phase_training(name, kernels, profiler):
     counts to 0, ``TRAIN_ITERS[name]`` timed iterations (each phase ends in
     a synchronise), then one traced iteration.  K1 must launch once per
     rollout step, K2 once per step on train_drl2 and never elsewhere, K3
-    never."""
+    never.  Returns the launch counts and the trained net."""
     from gym_collision_avoidance_torch.harness import paths
 
     path = paths.training_path(name)
@@ -1334,7 +1349,7 @@ def phase_training(name, kernels, profiler):
                                               "device_idle_share", "phases")},
             "metrics": values}
     print(json.dumps({name: line}), flush=True)
-    return launches
+    return launches, carry[0]
 
 
 def state_to(carry, device):
@@ -1635,16 +1650,20 @@ def parting_step(card, cpu):
     return None if close.all() else int(np.argmin(close))
 
 
-def replay_differing(name, cases, ref, full, why="outcome differs from JAX"):
+def replay_differing(name, cases, ref, full, why="outcome differs from JAX", cell=None):
     """Replay the ``cases`` of ``name`` (those whose outcome differs from the
     JAX reference) as their own batch, on the card and on the port's CPU,
     with trajectories; the step at which the card's positions part from the
-    CPU's.  An episode that parts at step 0 or 1 is a fault of the port."""
-    from gym_collision_avoidance_torch.harness import experiments
+    CPU's.  An episode that parts at step 0 or 1 is a fault of the port.
+    ``cell`` is ``(agents, policy)`` of a campaign cell outside
+    ``SUITE_PATHS``."""
+    from gym_collision_avoidance_torch.harness import experiments, paths
 
     out, runs = [], {}
     for device in (DEVICE, "cpu"):
-        scenarios, cfg, params = suite_cell(name, device)
+        scenarios, cfg, params = (suite_cell(name, device) if cell is None else
+                                  experiments.suite_cell(*cell, paths.SUITE_CASES,
+                                                         device=device))
         runs[device] = experiments.run_batched_episodes(
             [scenarios[i] for i in cases], cfg, params, collect_trajectories=True,
             device=device)
@@ -1905,6 +1924,279 @@ def phase_gymapi():
 
 
 
+# ------------------------------------------------------------- entry points
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WEIGHTS = os.path.join(ROOT, "gym_collision_avoidance_torch", "models", "weights")
+DRL_LONG_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_drl_long_jax_outcomes.json")
+ENTRY_K_STEPS = 2      # first steps of an entry point whose kernel launches are held bitwise
+# scripts/eval_trained_net.py on the shipped flagship, the campaign's cells
+FLAGSHIP = os.path.join(WEIGHTS, "ppo_selfplay_10agent_tpu.npz")
+TRAINED_AGENTS = (2, 3, 4)
+# scripts/train_example.py's defaults, and the iterations timed on the card
+REINFORCE_ENVS, REINFORCE_HORIZON, REINFORCE_ITERS = 256, 40, 5
+# a REINFORCE iteration on the card against the CPU's from the same draws
+# (PR 7's rules for a training step: tests/test_torch_train_cuda.py)
+REINFORCE_PARAMS_ATOL, REINFORCE_GRAD_RTOL = 1e-4, 1e-5
+
+
+def script_module(name):
+    """``scripts/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "scripts",
+                                                                     f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def hold_k2(calls, outs, what):
+    """Each captured K2 launch bitwise against ``raymarch_plain`` on its
+    arguments; returns the beams that hit something."""
+    from gym_collision_avoidance_torch.ops import raymarch
+
+    hits = 0
+    for t, (args, out) in enumerate(zip(calls, outs)):
+        ref = raymarch.raymarch_plain(*args)
+        check(bitwise_equal(out, ref), f"{what} launch {t}: K2 not bitwise equal")
+        hits += int((ref < raymarch.LASER_MAX_RANGE).sum())
+    return hits
+
+
+def drl_long_positions(cli, ckpt, ref, cases, device):
+    """``evaluate_drl_long`` on the first ``max(cases) + 1`` cases on
+    ``device``, keeping the ``[T, A, 2]`` positions of ``cases`` after every
+    step (``env_step``'s states, captured)."""
+    from gym_collision_avoidance_torch.env import step as env_step_module
+
+    keep, orig = [], env_step_module.env_step
+
+    def spy(*args):
+        out = orig(*args)
+        keep.append(out[0].pos[list(cases)].cpu().numpy())
+        return out
+
+    env_step_module.env_step = spy
+    try:
+        cli.evaluate_drl_long(ckpt, ref["agents"], max(cases) + 1, ref["steps"], device=device)
+    finally:
+        env_step_module.env_step = orig
+    return np.stack(keep, axis=1)                      # [cases, T, A, 2]
+
+
+def phase_eval_drl_long(kernels):
+    """``scripts/eval_drl_long_torch.py:evaluate_drl_long`` at the script's
+    width: the shipped DRL-Long net greedy as agent 0 against RVO on the 500
+    frozen 2-agent cases, E = 500, 250 steps (K1 at [500, 2] once a step; K2
+    at [500, 2, 512] once a step and once at the reset), counts from 0, timed.
+    K1's launches in the first ENTRY_K_STEPS steps, and K2's at the reset and
+    in those steps, are held bitwise.  Each case's at-goal, collision and
+    timeout flags are held against
+    the JAX script's (``tests/data/torch_drl_long_jax_outcomes.json``).  A
+    differing case is replayed on the card and the CPU to the step at which
+    the two part, and the phase fails."""
+    from gym_collision_avoidance_torch.ops import pairwise, raymarch
+
+    cli = script_module("eval_drl_long_torch")
+    with open(DRL_LONG_REFERENCE) as f:
+        ref = json.load(f)
+    ckpt = os.path.join(WEIGHTS, ref["ckpt"])
+    A, E, T = ref["agents"], ref["cases"], ref["steps"]
+    k1, k1_out, k2, k2_out = [], [], [], []
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    with capture(pairwise, "pairwise_rewards_cuda", k1, k1_out, ENTRY_K_STEPS), \
+            capture(raymarch, "raymarch_cuda", k2, k2_out, ENTRY_K_STEPS + 1):
+        out = cli.evaluate_drl_long(ckpt, A, E, T, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    launches = rank_counts(kernels)
+    check(launches == {"pairwise": T, "raymarch": T + 1, "laser_fused": 0},
+          f"eval_drl_long: launches {launches} in {T} steps")
+    # the reset's and the first steps' launches
+    k1_err = max(hold_k1(pairwise.pairwise_rewards_plain, args, out_k, f"eval_drl_long step {t}")
+                 for t, (args, out_k) in enumerate(zip(k1, k1_out)))
+    hits = hold_k2(k2, k2_out, "eval_drl_long")
+    shapes = {"k1": list(k1[0][0].shape[:2]), "k2": list(k2_out[0].shape)}
+    check(shapes == {"k1": [E, A], "k2": [E, A, 512]}, f"eval_drl_long: shapes {shapes}")
+    del k1, k1_out, k2, k2_out
+    flags = ("at_goal", "collision", "timeout")
+    differ = sorted({int(i) for k in flags for i in np.flatnonzero(out[k] != np.asarray(ref[k]))})
+
+    def pct(o):
+        at_goal, coll, timeout = (np.asarray(o[k], bool) for k in flags)
+        return {"success": 100 * float((at_goal & ~coll).mean()),
+                "collision": 100 * float(coll.mean()),
+                "timeout_stuck": 100 * float((timeout & ~coll & ~at_goal).mean())}
+
+    line = {"device": nvidia_smi_line(), "ckpt": ref["ckpt"], "agents": A, "cases": E,
+            "steps": T, "seconds": seconds, "env_steps_per_s": E * T / seconds,
+            "ms_per_step": 1e3 * seconds / T, "launches": launches, "pct": pct(out),
+            "jax_pct": pct(ref), "differing_cases": [int(i) for i in differ],
+            "k_held_steps": ENTRY_K_STEPS, "k1_k2_bitwise_equal": True,
+            "k1_max_abs_err": k1_err, "k2_beams_hit": hits, "shapes": shapes}
+    print(json.dumps({"eval_drl_long": line}), flush=True)
+    print("\n".join(cli.outcome_lines(ref["ckpt"], A, out)), flush=True)
+    if differ:
+        card = drl_long_positions(cli, ckpt, ref, differ, DEVICE)
+        cpu = drl_long_positions(cli, ckpt, ref, differ, "cpu")
+        print(json.dumps({"eval_drl_long_replayed_cases": [
+            {"case": int(c), "jax": {k: ref[k][c] for k in flags},
+             "card": {k: bool(out[k][c]) for k in flags},
+             "card_vs_cpu_parting_step": parting_step(card[j], cpu[j])}
+            for j, c in enumerate(differ)]}), flush=True)
+    check(not differ, f"eval_drl_long: cases {differ} differ from the JAX script's outcome")
+    return {"eval_drl_long": launches}
+
+
+def phase_eval_trained_net(kernels, trained_ga3c4):
+    """``scripts/eval_trained_net_torch.py:evaluate_trained_net`` on the
+    shipped flagship ``ppo_selfplay_10agent_tpu`` over the 500 frozen cases
+    of the 2-, 3- and 4-agent cells, each cell timed, K1 once a lockstep
+    step, and held against the JAX package's outcomes in
+    ``tests/data/torch_suite_jax_outcomes.json`` by ``compare_outcomes``
+    (every differing episode replayed); K1's first ENTRY_K_STEPS launches of
+    each cell held bitwise.  Then the net that ``train_ga3c4``
+    trained on the card, exported as ``train_ppo_torch.py --export-params``
+    writes it, scored on the 4-agent cell: a run of the pipeline, no
+    outcome gate."""
+    import tempfile
+
+    from gym_collision_avoidance_torch import convert
+    from gym_collision_avoidance_torch.harness import experiments
+    from gym_collision_avoidance_torch.ops import pairwise
+
+    cli = script_module("eval_trained_net_torch")
+    reference = experiments.load_outcome_records(SUITE_REFERENCE)
+    smi = nvidia_smi_line()
+    by_cell, failed = {}, []
+    for n in TRAINED_AGENTS:
+        calls, outs = [], []
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        with capture(pairwise, "pairwise_rewards_cuda", calls, outs, ENTRY_K_STEPS):
+            name, runs = cli.evaluate_trained_net(FLAGSHIP, (n,), device=DEVICE)
+        seconds = time.perf_counter() - t0
+        launches = rank_counts(kernels)
+        run = runs[n]
+        k1_err = max(hold_k1(pairwise.pairwise_rewards_plain, args, out, f"{name} at {n}")
+                     for args, out in zip(calls, outs))
+        shape = list(calls[0][0].shape[:2])
+        check(shape == [len(run.stats), n], f"{name} at {n}: K1 held at {shape}")
+        del calls, outs
+        check(launches == {"pairwise": run.lockstep_steps, "raymarch": 0, "laser_fused": 0},
+              f"{name} at {n}: launches {launches} in {run.lockstep_steps} steps")
+        record = experiments.cell_record(n, name, run.stats)
+        ref = reference[(n, name)]
+        cmp = experiments.compare_outcomes(ref, record)
+        print(json.dumps({f"eval_trained_net_{n}agent": {
+            "device": smi, "policy": name, "agents": n, "episodes": len(run.stats),
+            "seconds": seconds, "lockstep_steps": run.lockstep_steps,
+            "episodes_per_s": len(run.stats) / seconds,
+            "env_steps_per_s": len(run.stats) * run.lockstep_steps / seconds,
+            "launches": launches, "summary": record["summary"], "jax_summary": ref["summary"],
+            "outcome_agreement": cmp["outcome_agreement"],
+            "differing_cases": cmp["differing_cases"],
+            "steps_apart_cases": cmp["steps_apart_cases"],
+            "k1_held_at": shape, "k1_bitwise_equal": True, "k1_max_abs_err": k1_err}}),
+            flush=True)
+        if cmp["differing_cases"]:
+            replay_differing(f"eval_trained_net_{n}agent", cmp["differing_cases"], ref,
+                             run.stats, cell=(n, name))
+        if not cmp["ok"]:
+            failed.append(n)
+        by_cell[f"eval_trained_net_{n}agent"] = launches
+    check(not failed, f"eval_trained_net: the {failed}-agent cells disagree with the JAX "
+          "reference beyond the gate")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trained_") as tmp:
+        ckpt = os.path.join(tmp, "card_trained_ga3c4.npz")
+        np.savez(ckpt, **convert.ppo_params_to_numpy("ga3c", trained_ga3c4))
+        t0 = time.perf_counter()
+        name, runs = cli.evaluate_trained_net(ckpt, (4,), device=DEVICE)
+        seconds = time.perf_counter() - t0
+    run = runs[4]
+    summary = experiments.summarize_stats(run.stats)
+    check(all(math.isfinite(summary[k]) for k in ("pct_success", "pct_collision")),
+          f"{name}: non-finite summary {summary}")
+    print(json.dumps({"eval_card_trained_net": {
+        "device": smi, "net": "train_ga3c4's net after its phase, exported", "agents": 4,
+        "episodes": len(run.stats), "seconds": seconds, "lockstep_steps": run.lockstep_steps,
+        "summary": summary}}), flush=True)
+    print("\n".join(experiments.summary_table([{"num_agents": 4, "policy": name, **summary}])),
+          flush=True)
+    return by_cell
+
+
+def phase_reinforce(kernels):
+    """``scripts/train_example_torch.py`` at the CLI's defaults (E = 256,
+    T = 40, 2 agents; K1 at [256, 2] once a rollout step).  One iteration on
+    the card from the CPU's initial weights and noise against the same
+    iteration on the CPU: parameters within REINFORCE_PARAMS_ATOL, gradients
+    within REINFORCE_GRAD_RTOL of each tensor's largest CPU entry, K1's first
+    ENTRY_K_STEPS launches held bitwise.  Then REINFORCE_ITERS iterations
+    from a generator on the card, counts from 0 (after a warm-up
+    iteration), timed: ms per iteration and the returns, all finite."""
+    from gym_collision_avoidance_torch.ops import pairwise
+    from gym_collision_avoidance_torch.train import optim
+
+    cli = script_module("train_example_torch")
+    E, T = REINFORCE_ENVS, REINFORCE_HORIZON
+    trainers = {d: cli.Reinforce(E, T, device=d) for d in (DEVICE, "cpu")}
+    gen = torch.Generator().manual_seed(0)
+    init = {k: v.detach() for k, v in trainers["cpu"].init_policy(gen).items()}
+    eps = torch.randn((T, E, 2), generator=gen)
+    steps = {}
+    calls, outs = [], []
+    zero_counts(kernels)
+    for d, trainer in trainers.items():
+        p = {k: v.to(d).requires_grad_(True) for k, v in init.items()}
+        with capture(pairwise, "pairwise_rewards_cuda", calls, outs, ENTRY_K_STEPS):
+            p, _opt, loss, ret, grads = trainer.train_step(p, optim.init(p), eps.to(d))
+        steps[d] = {"params": {k: v.detach().cpu() for k, v in p.items()},
+                    "grads": {k: v.cpu() for k, v in grads.items()},
+                    "loss": float(loss), "mean_return": float(ret)}
+    check(pairwise.LAUNCHES == T, f"reinforce: K1 launched {pairwise.LAUNCHES} times in {T} "
+          "steps")
+    k1_err = max(hold_k1(pairwise.pairwise_rewards_plain, args, out, f"reinforce step {t}")
+                 for t, (args, out) in enumerate(zip(calls, outs)))
+    shape = list(calls[0][0].shape[:2])
+    del calls, outs
+    card, cpu = steps[DEVICE], steps["cpu"]
+    params_diff = max(max_abs_err(card["params"][k], cpu["params"][k]) for k in cpu["params"])
+    grad_ratio = max(max_abs_err(card["grads"][k], g) / float(g.abs().max())
+                     for k, g in cpu["grads"].items())
+    check(params_diff <= REINFORCE_PARAMS_ATOL,
+          f"reinforce: parameters apart by {params_diff} after one iteration")
+    check(grad_ratio <= REINFORCE_GRAD_RTOL,
+          f"reinforce: gradients apart by {grad_ratio} of their largest entry")
+
+    trainer = trainers[DEVICE]
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    trainer.run(1, generator=gen)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    params, rets = trainer.run(REINFORCE_ITERS, generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = rank_counts(kernels)
+    check(launches == {"pairwise": REINFORCE_ITERS * T, "raymarch": 0, "laser_fused": 0},
+          f"reinforce: launches {launches} in {REINFORCE_ITERS} iterations of {T} steps")
+    check(all(math.isfinite(r) for r in rets), f"reinforce: non-finite returns {rets}")
+    check(all(bool(torch.isfinite(v).all()) for v in params.values()),
+          "reinforce: non-finite parameters")
+    print(json.dumps({"reinforce": {
+        "device": nvidia_smi_line(), "num_envs": E, "horizon": T, "agents": 2,
+        "one_iteration_card_vs_cpu": {
+            "params_max_abs_diff": params_diff, "grads_max_diff_over_largest": grad_ratio,
+            "loss": [card["loss"], cpu["loss"]],
+            "mean_return": [card["mean_return"], cpu["mean_return"]],
+            "k1_held_at": shape, "k1_bitwise_equal": True, "k1_max_abs_err": k1_err},
+        "iterations": REINFORCE_ITERS, "seconds": seconds,
+        "ms_per_iteration": 1e3 * seconds / REINFORCE_ITERS,
+        "env_steps_per_s": REINFORCE_ITERS * E * T / seconds, "launches": launches,
+        "mean_returns": rets}}), flush=True)
+    return {"reinforce": launches}
+
+
 # ------------------------------------------- data parallelism, strict parity
 
 PAR_RANKS = 2                     # ranks sharing the one card (gloo, CUDA tensors)
@@ -2139,6 +2431,63 @@ def rank_sharded_ppo(mesh, kernels):
     return result
 
 
+def rank_sharded_resume(mesh, kernels, out_dir):
+    """train_mlp2's recipe (E = 1024, T = 64, 4 x 4 minibatches) on this
+    rank's rows: 2 iterations from ``init_fn``'s carry and a generator seeded
+    7 (K1 counted from 0, its first launches held), saved with
+    ``save_sharded_state``; then 1 iteration from the same start, a save, a
+    new trainer resuming from that file (``load_sharded_state``) and 1 more
+    iteration, saved.  Rank 0 lists the leaves of the two files that are not
+    bitwise equal."""
+    from gym_collision_avoidance_torch.harness import paths
+    from gym_collision_avoidance_torch.parallel import distributed
+    from gym_collision_avoidance_torch.train import make_sharded_ppo
+    from gym_collision_avoidance_torch.train.ppo import CARRY_ENV_ROWS
+
+    path = paths.training_path("train_mlp2")
+    files = {k: os.path.join(out_dir, f"resume_{mesh.backend}_{k}.npz")
+             for k in ("two", "one", "resumed")}
+
+    def start():
+        step, init_fn, _ = make_sharded_ppo(path.ppo, mesh, pool=path.pool)
+        return step, tuple(init_fn(path.ppo.seed)), torch.Generator(mesh.device).manual_seed(7)
+
+    def iterate(step, carry, gen):
+        *carry, _metrics = step(*carry, rng=gen)
+        return tuple(carry)
+
+    def save(name, carry, gen):
+        distributed.save_sharded_state(files[name], carry + (gen,), CARRY_ENV_ROWS, mesh)
+
+    step, carry, gen = start()
+    zero_counts(kernels)
+    held = []
+    t0 = time.perf_counter()
+    with held_k1(mesh, "sharded_resume", held):
+        carry = iterate(step, carry, gen)
+    carry = iterate(step, carry, gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = rank_counts(kernels)
+    save("two", carry, gen)
+    step, carry, gen = start()
+    save("one", iterate(step, carry, gen), gen)
+    step, carry, gen = start()
+    *carry, gen = distributed.load_sharded_state(files["one"], carry + (gen,), CARRY_ENV_ROWS,
+                                                 mesh)
+    save("resumed", iterate(step, tuple(carry), gen), gen)
+    apart, leaves = [], 0
+    if mesh.rank == 0:
+        with np.load(files["two"]) as two, np.load(files["resumed"]) as resumed:
+            leaves = len(two.files)
+            apart = sorted(set(two.files) ^ set(resumed.files)) + [
+                k for k in two.files if k in resumed.files and (
+                    two[k].dtype != resumed[k].dtype or two[k].tobytes() != resumed[k].tobytes())]
+    return {"launches": launches, "k1_held": held, "seconds_two_iterations": seconds,
+            "leaves": leaves, "leaves_apart": apart,
+            "file_bytes": os.path.getsize(files["two"])}
+
+
 RANK_CASES = {"serving": rank_serving, "ga3c4": rank_ga3c4, "rollout": rank_rollout,
               "sharded_ppo": rank_sharded_ppo}
 
@@ -2165,9 +2514,11 @@ def rank_main(argv):
     kernels = {"pairwise": pairwise, "raymarch": raymarch, "laser_fused": laser_fused}
     result = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
               "device": str(mesh.device)}
+    rank_cases = dict(RANK_CASES, sharded_resume=functools.partial(rank_sharded_resume,
+                                                                   out_dir=out_dir))
     for case in cases.split(","):
         t0 = time.perf_counter()
-        result[case] = RANK_CASES[case](mesh, kernels)
+        result[case] = rank_cases[case](mesh, kernels)
         result[case]["case_seconds"] = time.perf_counter() - t0
     torch.save(result, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
     torch.distributed.destroy_process_group()
@@ -2187,8 +2538,8 @@ def phase_parallel_ranks():
     results = {}
     script = os.path.abspath(__file__)
     for label, backend, ranks, cases in (("gloo", "gloo", PAR_RANKS,
-                                          "serving,ga3c4,rollout,sharded_ppo"),
-                                         ("nccl", "nccl", 1, "rollout")):
+                                          "serving,ga3c4,rollout,sharded_ppo,sharded_resume"),
+                                         ("nccl", "nccl", 1, "rollout,sharded_resume")):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as out:
             t0 = time.perf_counter()
             distributed.spawn_local([sys.executable, script, "--rank-job", backend, cases, out],
@@ -2444,6 +2795,36 @@ def phase_sharded_ppo(results):
     return {f"sharded_ppo_rank{i}": t["launches"] for i, t in enumerate(timed)}
 
 
+def phase_sharded_resume(results):
+    """``train_ppo_torch.py --save/--resume`` under a mesh
+    (:func:`rank_sharded_resume`) on 2 gloo ranks sharing the card and on 1
+    NCCL rank: 2 iterations bitwise equal, in every leaf of the saved carry
+    and generator, to 1 iteration, a save, a resume and 1 more; K1 twice
+    the horizon a rank in the 2 iterations, held at ``[E / D, 2]``."""
+    from gym_collision_avoidance_torch.harness import paths
+
+    ppo = paths.training_path("train_mlp2").ppo
+    line, by_path = {"device": nvidia_smi_line(), "num_envs": ppo.num_envs,
+                     "horizon": ppo.horizon, "iterations": 2}, {}
+    for label, ranks in results.items():
+        runs = [r["sharded_resume"] for r in ranks]
+        for i, r in enumerate(runs):
+            check(r["launches"]["pairwise"] == 2 * ppo.horizon,
+                  f"sharded_resume over {label}: rank {i} launched K1 {r['launches']}")
+            by_path[f"sharded_resume_{label}_rank{i}"] = r["launches"]
+        check(runs[0]["leaves"] > 0 and not runs[0]["leaves_apart"],
+              f"sharded_resume over {label}: leaves {runs[0]['leaves_apart']} of the resumed "
+              "run differ from the uninterrupted one")
+        line[label] = {"ranks": len(runs), "leaves_bitwise_equal": runs[0]["leaves"],
+                       "file_bytes": runs[0]["file_bytes"],
+                       "seconds_two_iterations": [r["seconds_two_iterations"] for r in runs],
+                       "case_seconds": [r["case_seconds"] for r in runs],
+                       **check_held(runs, f"sharded_resume over {label}",
+                                    [ppo.num_envs // len(runs), 2])}
+    print(json.dumps({"sharded_resume": line}), flush=True)
+    return by_path
+
+
 def phase_strict_parity(kernels):
     """STRICT_STEPS auto-reset steps of the main path at E = STRICT_ENVS with
     ``strict_parity=True`` on the card against the CPU: pos, heading, vel and
@@ -2525,9 +2906,10 @@ def main():
                                    LASER_STEPS, LASER_DISPATCHES)
     run("fast_vs_full", phase_fast_vs_full, states)
     run("laser_card_vs_cpu", phase_laser_card_vs_cpu)
-    profiler = profiler_module()
+    profiler = script_module("profile_torch_serving")
+    trained = {}
     for name in TRAIN_ITERS:
-        by_path[name] = run(name, phase_training, name, kernels, profiler)
+        by_path[name], trained[name] = run(name, phase_training, name, kernels, profiler)
     run("kernels_on_training", phase_kernels_on_training)
     run("train_card_vs_cpu", phase_train_card_vs_cpu)
     run("train_deterministic", phase_train_deterministic)
@@ -2540,7 +2922,12 @@ def main():
     by_path.update(run("parallel_ga3c4", phase_parallel_ga3c4, ranks["gloo"]))
     by_path.update(run("parallel_nccl", phase_parallel_nccl, ranks))
     by_path.update(run("sharded_ppo", phase_sharded_ppo, ranks["gloo"]))
+    by_path.update(run("sharded_resume", phase_sharded_resume, ranks))
     by_path.update(run("strict_parity", phase_strict_parity, kernels))
+    by_path.update(run("eval_drl_long", phase_eval_drl_long, kernels))
+    by_path.update(run("eval_trained_net", phase_eval_trained_net, kernels,
+                       trained["train_ga3c4"]))
+    by_path.update(run("reinforce", phase_reinforce, kernels))
 
     for k, name, main_path in ((k1, "pairwise", "main"), (k2, "raymarch", "laser_full"),
                                (k3, "laser_fused", "laser_fast")):

@@ -184,3 +184,33 @@ def compute_time_to_impact(host_pos, other_pos, host_vel, other_vel, combined_ra
     inf = torch.full_like(ttc, math.inf)
     out = torch.where(inside & moving, ttc, inf)
     return torch.where(already_colliding, torch.zeros_like(out), out)
+
+
+def _tensor(x) -> torch.Tensor:
+    return x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+
+
+def find_nearest(array, value):
+    """For each value, the nearest entry of a 1-D array and its index
+    (envs/util.py:148-153); the first index on a tie, as ``argmin``."""
+    array, value = _tensor(array), torch.atleast_1d(_tensor(value))
+    idx = torch.argmin(torch.abs(array[None, :] - value[:, None]), dim=1)
+    return array[idx], idx
+
+
+def rad2deg(rad):
+    """Radians to degrees, ``rad * 180 / pi`` in that order."""
+    return _tensor(rad) * 180.0 / math.pi
+
+
+def l2normsq(x, y):
+    """(x0-y0)^2 + (x1-y1)^2 (envs/util.py:20-21)."""
+    x, y = _tensor(x), _tensor(y)
+    return (x[..., 0] - y[..., 0]) ** 2 + (x[..., 1] - y[..., 1]) ** 2
+
+
+def yaw_to_quaternion(yaw):
+    """Planar yaw -> (qx, qy, qz, qw) (envs/util.py:175-188)."""
+    yaw = _tensor(yaw)
+    return (torch.zeros_like(yaw), torch.zeros_like(yaw), torch.sin(yaw * 0.5),
+            torch.cos(yaw * 0.5))

@@ -283,6 +283,32 @@ def summarize_stats(stats: Sequence[dict]) -> Dict[str, float]:
     }
 
 
+SUMMARY_COLUMNS = ("num_agents", "policy", "pct_collision", "pct_stuck", "pct_success",
+                   "mean_extra_time_to_goal", "p90_extra_time_to_goal")
+
+
+def summary_table(rows: Sequence[dict]) -> List[str]:
+    """Lines of a fixed-width table of :data:`SUMMARY_COLUMNS` rows (the
+    CLIs' printout of :func:`summarize_suite`)."""
+    lines = [" ".join(f"{c:>24}" for c in SUMMARY_COLUMNS)]
+    for row in rows:
+        lines.append(" ".join(f"{row[c]:>24.6g}" if isinstance(row[c], float)
+                              else f"{row[c]:>24}" for c in SUMMARY_COLUMNS))
+    return lines
+
+
+def write_summary_csv(path: str, rows: Sequence[dict]) -> str:
+    """Write :data:`SUMMARY_COLUMNS` rows as a CSV file (the columns of
+    :func:`summarize_suite`'s DataFrame, without pandas); returns the path."""
+    import csv
+
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=SUMMARY_COLUMNS)
+        writer.writeheader()
+        writer.writerows(rows)
+    return path
+
+
 def summarize_suite(results: Dict) -> "pandas.DataFrame":
     """Aggregate per-cell success rates / mean extra time-to-goal of
     :func:`run_full_test_suite`'s results, like

@@ -16,6 +16,9 @@
   shipped ``drl_long_2agent_rvo_tpu`` net against an RVO agent, evaluate
   mode, the empty 16 x 16 m map, 512 beams on the full pass, a 64-case
   pool, 4096 envs;
+* ``drl_long_eval`` (:func:`drl_long_eval_path`): ``scripts/eval_drl_long.py``'s
+  own world, drl2's config and obs keys with the laserscan sensor alone and
+  no map, one env per frozen suite case, agent 0 a learner the caller drives;
 * ``laser_full`` / ``laser_fast``: ``bench_ga3c20_laser``, 20 GA3C-CADRL
   agents on ``circle_scenario(20, radius=8.0, agent_radius=0.3)``, 512
   beams, the empty 20 x 20 m map, 256 envs, without and with its fast
@@ -76,7 +79,8 @@ SUITE_AGENTS, SUITE_CASES = 4, 500
 LASER_SENSORS = ("other_agents_states", "laserscan")
 LASER_OBS = ("num_other_agents", "dist_to_goal", "heading_ego_frame", "pref_speed", "radius",
              "other_agents_states", "laserscan")
-# scripts/eval_drl_long.py's observation keys
+# scripts/eval_drl_long.py's config and observation keys
+DRL2_CFG = EnvConfig(dtype="float32", done_mode="evaluate", use_static_map=True)
 DRL2_OBS = ("dist_to_goal", "heading_ego_frame", "pref_speed", "radius", "laserscan")
 
 
@@ -177,7 +181,7 @@ def serving_path(name: str, device="cuda") -> ServingPath:
                            np.full(4, registry.CADRL, np.int32),
                            {"cadrl": cadrl.load_params("no_constr", device=device)}, 4096)
     if name == "drl2":
-        cfg = EnvConfig(dtype="float32", done_mode="evaluate", use_static_map=True)
+        cfg = DRL2_CFG
         static, cells = map_inputs(cfg, device)
         return ServingPath(name, cfg, random_cases.scenario_pool(64, 2, seed=0, side_length=4.0),
                            np.array([registry.DRL_LONG, registry.RVO], np.int32),
@@ -189,6 +193,21 @@ def serving_path(name: str, device="cuda") -> ServingPath:
     return ServingPath(name, cfg, _one_case(sc), np.full(20, registry.GA3C_CADRL, np.int32),
                        {"ga3c_cadrl": ga3c_cadrl.load_params(device=device)}, 256,
                        LASER_SENSORS, LASER_OBS, static, cells)
+
+
+def drl_long_eval_path(num_agents: int = 2, num_cases: int = 500, device="cuda") -> ServingPath:
+    """``scripts/eval_drl_long.py``'s world (:58-73): drl2's config and obs
+    keys, the laserscan sensor alone, no static map and an empty cell list;
+    one env for each of the first ``num_cases`` frozen cases of the
+    ``num_agents`` suite, agent 0 a learner whose actions the caller gives
+    (``LEARNING``) and the others RVO.  No params: the net is the caller's."""
+    from gym_collision_avoidance_torch.scenarios import suites
+
+    pool = np.stack(suites.load_full_test_suite(num_agents)[:num_cases])
+    policy_id = np.array([registry.LEARNING] + [registry.RVO] * (num_agents - 1), np.int32)
+    return ServingPath("drl_long_eval", DRL2_CFG, pool, policy_id, None, len(pool),
+                       ("laserscan",), DRL2_OBS, None,
+                       torch.zeros((0, 2), dtype=torch.int32, device=device))
 
 
 @functools.lru_cache(maxsize=None)

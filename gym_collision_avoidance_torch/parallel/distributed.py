@@ -10,6 +10,10 @@
 * each rank builds only its own slice of the env batch
   (:func:`host_local_batch`); the global ``[E, ...]`` batch never exists in
   one process;
+* :func:`save_sharded_state` and :func:`load_sharded_state` write a
+  training carry whose env rows are sharded as one file in global row
+  order and read it back at any rank count (:func:`gather_env_rows`, then
+  ``mesh.shard_env_batch``);
 * :func:`make_distributed_rollout` steps the slice and reduces its metrics
   once a dispatch: the per-step scalars are stacked over the loop and one
   ``all_reduce`` of the stacked ``[2, num_steps]`` buffer gives every rank
@@ -35,10 +39,12 @@ import torch
 import torch.distributed as dist
 
 from gym_collision_avoidance_torch.config import EnvConfig
+from gym_collision_avoidance_torch.core.state import EnvState
 from gym_collision_avoidance_torch.env.batch import batched_env_step
 from gym_collision_avoidance_torch.obs import spec as obs_spec
-from gym_collision_avoidance_torch.parallel.mesh import EnvMesh, make_mesh
+from gym_collision_avoidance_torch.parallel.mesh import EnvMesh, make_mesh, shard_env_batch
 from gym_collision_avoidance_torch.policies import registry as policies
+from gym_collision_avoidance_torch.utils import checkpoint
 
 BACKENDS = ("nccl", "gloo")
 
@@ -139,6 +145,76 @@ def replicate_global(tree, mesh: EnvMesh):
             t.copy_(flat[at:at + n].view(t.shape))
             at += n
     return tree
+
+
+def _map_leaves(tree, fn):
+    """``tree`` (a tensor, an EnvState, or a dict, list or tuple of them)
+    with every tensor ``t`` replaced by ``fn(t)``, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, EnvState):
+        return tree.map(fn)
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(v, fn) for v in tree)
+    raise TypeError(f"no env rows in a {type(tree).__name__}")
+
+
+@torch.no_grad()
+def gather_env_rows(tree, mesh: EnvMesh):
+    """Every rank's rows of ``tree``'s tensors (each ``[E/D, ...]``, this
+    rank's block of the global env axis) joined in global row order, ``[E,
+    ...]`` on every rank: the counterpart of ``np.asarray`` of a sharded
+    array.  Each rank broadcasts its leaves' bytes in turn (one ``broadcast``
+    a rank), so every bit, -0.0 and NaN payloads included, arrives as it
+    was.  A one-process mesh returns ``tree``."""
+    if mesh.group is None:
+        return tree
+    leaves = []
+    _map_leaves(tree, leaves.append)
+    local = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in leaves])
+    blocks = [mesh.broadcast(local.clone() if r == mesh.rank else torch.empty_like(local), src=r)
+              for r in range(mesh.size)]
+    joined, at = [], 0
+    for t in leaves:
+        n = t.numel() * t.element_size()
+        joined.append(torch.cat([b[at:at + n].clone().view(t.dtype).view(t.shape)
+                                 for b in blocks]))
+        at += n
+    rows = iter(joined)
+    return _map_leaves(tree, lambda _t: next(rows))
+
+
+def save_sharded_state(path: str, carry: tuple, row_items: Sequence[int], mesh: EnvMesh) -> str:
+    """Write a carry whose items ``row_items`` hold this rank's env rows as
+    one file in the unsharded layout (``utils.checkpoint.save_state``), as
+    the JAX package saves a sharded carry whole: those items gathered in
+    global row order (:func:`gather_env_rows`), the other (replicated) items
+    as they are.  Every rank calls it; rank 0 writes, and the others return
+    once the file is there.  Returns ``path``."""
+    from gym_collision_avoidance_torch.utils import checkpoint
+
+    whole = tuple(gather_env_rows(x, mesh) if i in row_items else x
+                  for i, x in enumerate(carry))
+    if mesh.rank == 0:
+        checkpoint.save_state(path, whole)
+    mesh.psum(torch.zeros((), device=mesh.device)).item()
+    return path
+
+
+def load_sharded_state(path: str, like: tuple, row_items: Sequence[int], mesh: EnvMesh) -> tuple:
+    """Read a file of :func:`save_sharded_state` (or ``save_state``), saved
+    at any rank count that divides the env count, into this rank's carry:
+    items ``row_items`` are this rank's rows of the file's global rows
+    (``mesh.shard_env_batch``), the others as saved; structure, dtypes and
+    devices those of ``like``, whose row items have this rank's rows."""
+    def widen(t):
+        return t.new_empty((t.shape[0] * mesh.size,) + tuple(t.shape[1:]))
+
+    whole = checkpoint.load_state(path, tuple(_map_leaves(x, widen) if i in row_items else x
+                                              for i, x in enumerate(like)))
+    return tuple(shard_env_batch(x, mesh) if i in row_items else x for i, x in enumerate(whole))
 
 
 def make_distributed_rollout(

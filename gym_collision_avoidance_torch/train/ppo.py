@@ -68,6 +68,9 @@ from gym_collision_avoidance_torch.parallel.mesh import EnvMesh, pool_rows
 from gym_collision_avoidance_torch.policies import registry as policies
 from gym_collision_avoidance_torch.train import optim
 
+# the items of the carry ``(params, opt_state, states, counters, obs)`` that
+# hold env rows (a rank's own under a mesh); params and opt_state are replicated
+CARRY_ENV_ROWS = (2, 3, 4)
 _HALF_LOG_2PI = 0.5 * float(np.log(2.0 * np.pi))
 _HALF_LOG_2PI_E = 0.5 * float(np.log(2.0 * np.pi * np.e))
 

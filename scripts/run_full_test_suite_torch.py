@@ -21,16 +21,12 @@ Usage:
 """
 
 import argparse
-import csv
 import json
 import os
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-SUMMARY_COLUMNS = ("num_agents", "policy", "pct_collision", "pct_stuck", "pct_success",
-                   "mean_extra_time_to_goal", "p90_extra_time_to_goal")
 
 
 def main(argv=None):
@@ -87,14 +83,8 @@ def main(argv=None):
                 experiments.write_stats_pickle(experiments.stats_frame(stats, policy),
                                                args.out, num_agents, policy)
 
-    print(" ".join(f"{c:>24}" for c in SUMMARY_COLUMNS))
-    for row in rows:
-        print(" ".join(f"{row[c]:>24.6g}" if isinstance(row[c], float) else f"{row[c]:>24}"
-                       for c in SUMMARY_COLUMNS))
-    with open(os.path.join(args.out, "summary.csv"), "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=SUMMARY_COLUMNS)
-        writer.writeheader()
-        writer.writerows(rows)
+    print("\n".join(experiments.summary_table(rows)))
+    experiments.write_summary_csv(os.path.join(args.out, "summary.csv"), rows)
     with open(os.path.join(args.out, "outcomes.json"), "w") as f:
         json.dump({"generator": "scripts/run_full_test_suite_torch.py",
                    "package": "gym_collision_avoidance_torch", "device": kind,

@@ -11,8 +11,11 @@ trains data-parallel over N ranks, one per card (``cuda:<rank>``, NCCL; with
 ``train.ppo.make_sharded_ppo``: the script starts the N ranks itself, or runs
 as one of them under ``torchrun --nproc-per-node N``.  Only rank 0 prints and
 exports.  ``--save``/``--resume`` write and read the whole training
-carry and the noise generator (``utils/checkpoint.py``), so a resumed run
-continues bitwise; ``--init-params``/``--export-params`` read and write the
+carry and the noise generator as one file (``utils/checkpoint.py``), the
+ranks' env rows gathered in global order
+(``parallel.distributed.save_sharded_state``), so a resumed run continues
+bitwise at the same ``--devices`` and loads at any other that divides
+``--envs``; ``--init-params``/``--export-params`` read and write the
 JAX package's parameter ``.npz`` (``convert.ppo_params_*``), so a net moves
 between the two packages either way.
 
@@ -88,9 +91,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--process-id", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--save", default=None, metavar="PATH",
                     help="save the training carry and noise generator here at the end "
-                         "(and every 20 iterations); one device only")
+                         "(and every 20 iterations), the env rows of every rank in one file")
     ap.add_argument("--resume", default=None, metavar="PATH",
-                    help="resume from a --save file (bitwise continuation); one device only")
+                    help="resume from a --save file, saved at any --devices that divides "
+                         "--envs (a bitwise continuation at the same --devices)")
     ap.add_argument("--init-params", default=None, metavar="PATH",
                     help="(--arch ga3c/drl_long) warm-start the net from a parameter .npz "
                          "(this script's or scripts/train_ppo.py's --export-params) with a "
@@ -121,9 +125,6 @@ def main(argv=None) -> int:
         for flag in ("init_params", "export_params"):
             if getattr(args, flag):
                 ap.error(f"--{flag.replace('_', '-')} requires --arch ga3c or drl_long")
-    if args.devices > 1 and (args.save or args.resume):
-        ap.error("--save/--resume keep one device's carry; the env states of a --devices run "
-                 "are sharded over the ranks")
     if args.envs % args.devices:
         ap.error(f"--envs {args.envs} does not split over --devices {args.devices}")
     ranked = args.process_id is not None or "WORLD_SIZE" in os.environ
@@ -138,9 +139,9 @@ def main(argv=None) -> int:
     from gym_collision_avoidance_torch.policies import registry as P
     from gym_collision_avoidance_torch.scenarios import random_cases
     from gym_collision_avoidance_torch.parallel import distributed as dist
+    from gym_collision_avoidance_torch.parallel.mesh import EnvMesh
     from gym_collision_avoidance_torch.train import PPOConfig, make_ppo, make_sharded_ppo
-    from gym_collision_avoidance_torch.train.ppo import trainable_params
-    from gym_collision_avoidance_torch.utils import checkpoint as ckpt
+    from gym_collision_avoidance_torch.train.ppo import CARRY_ENV_ROWS, trainable_params
 
     device = resolve_device(args.device)
     mesh = None
@@ -177,9 +178,11 @@ def main(argv=None) -> int:
     say(f"obs_dim={obs_dim} envs={args.envs} horizon={args.horizon} "
         f"agents={args.agents} traffic={args.traffic} devices={args.devices} device={label}")
 
+    ranks = mesh or EnvMesh(device)
     if args.resume:
-        *carry, gen = ckpt.load_state(args.resume, tuple(carry) + (gen,))
-        print(f"resumed from {args.resume}")
+        *carry, gen = dist.load_sharded_state(args.resume, tuple(carry) + (gen,),
+                                              CARRY_ENV_ROWS, ranks)
+        say(f"resumed from {args.resume}")
     elif args.init_params:
         with np.load(args.init_params) as z:
             arrays = {k: z[k] for k in z.files}
@@ -197,7 +200,7 @@ def main(argv=None) -> int:
         *carry, m = step(*carry, rng=gen)
         steps_done += args.envs * args.horizon
         if args.save and i and i % 20 == 0:
-            ckpt.save_state(args.save, tuple(carry) + (gen,))
+            dist.save_sharded_state(args.save, tuple(carry) + (gen,), CARRY_ENV_ROWS, ranks)
         if i % max(1, args.iters // 20) == 0 or i == args.iters - 1:
             dt = time.time() - t0
             say(f"iter {i:4d}  return/ep {float(m['mean_return_per_episode']):+.3f}"
@@ -210,7 +213,8 @@ def main(argv=None) -> int:
     say(f"total: {steps_done} env-steps in {dt:.1f}s = {steps_done / max(dt, 1e-9):.3g} "
         f"env-steps/s on {args.devices} x {label}")
     if args.save:
-        print(f"saved {ckpt.save_state(args.save, tuple(carry) + (gen,))}")
+        dist.save_sharded_state(args.save, tuple(carry) + (gen,), CARRY_ENV_ROWS, ranks)
+        say(f"saved {args.save}")
     if args.export_params and lead:
         np.savez(args.export_params, **convert.ppo_params_to_numpy(args.arch, carry[0]))
         print(f"exported {args.export_params}")

@@ -29,7 +29,11 @@ with a ``PPOTrainer`` on its slice of the envs, one epoch of one minibatch
 
 Also: ``init_distributed``, ``process_env_slice``, the launcher
 ``scripts/launch_multihost_torch.py --spawn 2`` against an in-process run,
-and the training CLI's ``--devices 2``.
+the training CLI's ``--devices 2``, and its ``--save``/``--resume`` there:
+two iterations equal one, a save, a resume and one more, bitwise in every
+leaf of the saved carry and generator, and a file saved at 2 ranks loads at
+1 with the same global carry (``parallel.distributed.save_sharded_state``
+and ``load_sharded_state``).
 """
 
 import json
@@ -284,3 +288,42 @@ def test_training_cli_trains_on_two_cpu_ranks():
                           env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.count("total:") == 1 and "devices=2" in proc.stdout
+
+
+@pytest.fixture(scope="module")
+def saved(tmp_path_factory):
+    """The training CLI's files (2 agents, 8 envs, horizon 4): ``two`` after
+    2 iterations on 2 gloo ranks; ``one`` after 1; ``resumed`` after
+    resuming ``one`` for 1 more; ``single`` after loading ``two`` on 1 rank
+    and running none."""
+    tmp = tmp_path_factory.mktemp("resume")
+    files = {k: str(tmp / f"{k}.npz") for k in ("two", "one", "resumed", "single")}
+    runs = ((2, 2, None, "two"), (2, 1, None, "one"), (2, 1, "one", "resumed"),
+            (1, 0, "two", "single"))
+    for devices, iters, resume, save in runs:
+        cmd = [sys.executable, os.path.join(REPO, "scripts", "train_ppo_torch.py"),
+               "--device", "cpu", "--devices", str(devices), "--iters", str(iters),
+               "--envs", "8", "--horizon", "4", "--pool-cases", "8", "--save", files[save]]
+        if resume:
+            cmd += ["--resume", files[resume]]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                              env=dict(os.environ, OMP_NUM_THREADS="1"))
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert proc.stdout.count(f"saved {files[save]}") == 1
+    return {k: dict(np.load(v)) for k, v in files.items()}
+
+
+def _assert_same_file(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert got[k].tobytes() == want[k].tobytes(), k
+
+
+def test_training_cli_resumes_two_ranks_bitwise(saved):
+    _assert_same_file(saved["resumed"], saved["two"])
+    assert any(not np.array_equal(saved["one"][k], saved["two"][k]) for k in saved["two"])
+
+
+def test_training_cli_loads_a_two_rank_file_on_one(saved):
+    _assert_same_file(saved["single"], saved["two"])

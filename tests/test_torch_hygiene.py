@@ -87,6 +87,62 @@ def test_training_cli_imports_no_jax():
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
 
 
+# each new entry point's CLI at a tiny size on the CPU: (script, main's
+# arguments, with {tmp} a scratch directory)
+_DRL_LONG = "gym_collision_avoidance_torch/models/weights/drl_long_2agent_rvo_tpu.npz"
+_FLAGSHIP = "gym_collision_avoidance_torch/models/weights/ppo_selfplay_10agent_tpu.npz"
+_ENTRY_POINTS = {
+    "eval_drl_long_torch": ([_DRL_LONG, "--cases", "2", "--steps", "2"],),
+    "eval_trained_net_torch": ([_FLAGSHIP, "--agents", "2", "--cases", "2"],),
+    "train_example_torch": (["--iters", "1", "--envs", "8", "--horizon", "2"],),
+    "example_torch": (["--out", "{tmp}"],),
+    "run_cadrl_formations_torch": (["--episodes", "1", "--out", "{tmp}"],),
+    "run_trajectory_dataset_creator_torch": (["--trajs", "1", "--out", "{tmp}/trajs.p"],),
+    "collect_regression_dataset_torch": (["--train", "2", "--test", "2", "--agents", "2",
+                                          "--out", "{tmp}"],),
+}
+_ENTRY_POINT_NO_JAX = """
+import importlib.util, sys, tempfile
+spec = importlib.util.spec_from_file_location("cli", "scripts/{script}.py")
+cli = importlib.util.module_from_spec(spec); spec.loader.exec_module(cli)
+with tempfile.TemporaryDirectory() as tmp:
+    args = [[a.replace("{{tmp}}", tmp) for a in x] if isinstance(x, list) else
+            x.replace("{{tmp}}", tmp) if isinstance(x, str) else x for x in {args}]
+    assert cli.main(*args) in (0, None)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "gym_collision_avoidance_tpu"))
+assert not bad, bad
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("script", sorted(_ENTRY_POINTS) + ["regenerate_suites_torch"])
+def test_entry_point_cli_imports_no_jax(script):
+    """Each of the port's entry-point scripts runs on the CPU without
+    importing jax or the JAX package."""
+    if script == "regenerate_suites_torch":
+        args = ("{tmp}", 0, 2)          # main(out_dir, seed, num_test_cases): host only
+    else:
+        args = (_ENTRY_POINTS[script][0] + ["--device", "cpu"],)
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _ENTRY_POINT_NO_JAX.format(script=script, args=repr(list(args)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo_root, capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
+@pytest.mark.parametrize("script", sorted(_ENTRY_POINTS))
+def test_entry_point_cli_defaults_to_cuda_and_raises_without_it(no_cuda, script, tmp_path):
+    """Without ``--device`` each entry point asks for the card, and raises
+    without one (``regenerate_suites_torch.py`` runs on the host only)."""
+    import importlib
+
+    cli = importlib.import_module(f"scripts.{script}")
+    argv = [a.replace("{tmp}", str(tmp_path)) for a in _ENTRY_POINTS[script][0]]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(argv)
+
+
 _WITHOUT_OPTIONAL = """
 import importlib, importlib.util, pkgutil, sys, tempfile
 
