@@ -106,6 +106,14 @@ beside its numbers:
 
 K1's (and on eval_drl_long K2's) first launches in each are held bitwise.
 
+Then the benchmark's rows (bench_rows): every row of
+``scripts/bench_all_torch.py`` once at the env count the JAX repo runs it at,
+8 steps a dispatch, counts from 0 before each row (K1 once a step, K3 once a
+step on ga3c20_laser), ga3c40's first K1 launches held bitwise at
+``[512, 40]``, the host reads inside each timed window counted a step; and
+``bench_torch.py``'s exactness tripwire, which must pass clean and trip with
+TF32 products on.
+
 It checks the fast route against the full pass wherever its exactness guard
 is quiet, and one env step on the card against the same step on the CPU,
 each env on its own pool case: on the main path, on ga3c4, orca4, cadrl4
@@ -2197,6 +2205,137 @@ def phase_reinforce(kernels):
     return {"reinforce": launches}
 
 
+# ------------------------------------------- the benchmark's rows
+
+BENCH_ROW_STEPS = 8    # steps a dispatch of each row in the bench_rows phase
+
+
+def root_module(name):
+    """``<name>.py`` at the root of the checkout as a module."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def host_syncs(counts):
+    """Append to ``counts`` the number of synchronising CUDA calls (host
+    reads of device values) made in the block, from torch's sync debug
+    mode."""
+    import warnings
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    counts.append(sum("synchroniz" in str(w.message) for w in seen))
+
+
+def bench_row_envs(bench):
+    """The bench's env count at which the JAX repo runs each row of
+    ``scripts/bench_all.py``: ``bench.py``'s profile rows and headline (the
+    autoreset4 loop), ``bench_ga3c40``'s official 16384, and the script's
+    default 4096 for the rest."""
+    envs = {name: 4096 for name in bench.bench_all_torch.CONFIGS}
+    envs.update({name: e for name, _, (e, _), _ in bench.PROFILE_ROWS})
+    envs.update(autoreset4=bench.HEADLINE["num_envs"], ga3c40=16384)
+    return envs
+
+
+def phase_bench_rows(kernels):
+    """Every row of ``scripts/bench_all_torch.py`` once at its env count
+    (:func:`bench_row_envs`), BENCH_ROW_STEPS steps a dispatch, one window
+    of one dispatch after the warm-up, counts from 0 before each row: K1
+    once a step (a training iteration's 64 rollout steps on ppo_train), K3
+    once a step on ga3c20_laser, nothing else.  ga3c40's first
+    ENTRY_K_STEPS K1 launches are held bitwise at ``[E, 40]``.  The host
+    reads inside each timed window are counted a step as torch's sync debug
+    mode's warnings, beside what it counts for one read of each form.  Then
+    ``bench_torch.py``'s tripwire on the card: clean it passes (K1 launched
+    on the kernel route only), with TF32 products on the kernel route it
+    trips."""
+    from gym_collision_avoidance_torch.ops import pairwise
+
+    bench = root_module("bench_torch")
+    rows = bench.bench_all_torch
+    envs = bench_row_envs(bench)
+    # what sync debug mode counts for one read of each form (ORCA's LP3 flag
+    # is a bool(x.any())), after a read whose count is dropped: the first read
+    # the mode sees in a process has counted twice
+    probe = torch.ones(1, device=DEVICE)
+    with host_syncs([]):
+        probe.item()
+    calibration = {}
+    for form, read in (("bool(x.any())", lambda: bool(probe.any())),
+                       (".item()", lambda: probe.item())):
+        counts = []
+        with host_syncs(counts):
+            read()
+        calibration[form] = counts[0]
+    timed = rows.timed_windows
+    by_path, lines = {}, {}
+    try:
+        for name, fn in rows.CONFIGS.items():
+            syncs = []
+
+            def counted(device, dispatch, work, reps, pipeline):
+                def spy():
+                    with host_syncs(syncs):
+                        return dispatch()
+                return timed(device, spy, work, reps, pipeline)
+
+            rows.timed_windows = counted
+            calls, outs = [], []
+            zero_counts(kernels)
+            with capture(pairwise, "pairwise_rewards_cuda", calls, outs,
+                         ENTRY_K_STEPS if name == "ga3c40" else 0):
+                row = fn(envs[name], BENCH_ROW_STEPS, device=DEVICE, reps=1, pipeline=1)
+            torch.cuda.synchronize()
+            launches = rank_counts(kernels)
+            steps = 2 * row["num_steps"]                  # the warm-up and the window
+            want = {"pairwise": steps, "raymarch": 0,
+                    "laser_fused": steps if name == "ga3c20_laser" else 0}
+            check(launches == want, f"bench_rows {name}: launches {launches}, not {want}")
+            check(row["env_steps_per_sec"] > 0 and row.get("nan_free", True),
+                  f"bench_rows {name}: {row}")
+            line = {"num_envs": row["num_envs"], "steps": steps,
+                    "env_steps_per_s": row["env_steps_per_sec"],
+                    "ms_per_step": 1e3 * row["num_envs"] / row["env_steps_per_sec"],
+                    "sync_warnings_per_step": sum(syncs) / row["num_steps"],
+                    "launches": launches}
+            if name == "ga3c40":
+                line["k1_max_abs_err"] = max(
+                    hold_k1(pairwise.pairwise_rewards_plain, args, out, f"ga3c40 step {t}")
+                    for t, (args, out) in enumerate(zip(calls, outs)))
+                line["k1_held_at"] = list(calls[0][0].shape[:2])
+                check(line["k1_held_at"] == [envs[name] // 32, 40],
+                      f"bench_rows ga3c40: K1 at {line['k1_held_at']}")
+            del calls, outs
+            lines[name] = line
+            by_path[f"bench_{name}"] = launches
+    finally:
+        rows.timed_windows = timed
+    zero_counts(kernels)
+    clean = bench._exactness_check(DEVICE)
+    k1_clean = pairwise.LAUNCHES
+    fault = bench._exactness_check(DEVICE, fault=True)
+    check(clean == "ok", f"bench_rows: the clean tripwire failed: {clean}")
+    check(fault.startswith("MISMATCH"), f"bench_rows: the TF32 fault did not trip: {fault}")
+    check(k1_clean == bench.EXACTNESS_STEPS and pairwise.LAUNCHES == 2 * k1_clean,
+          f"bench_rows: K1 launched {k1_clean}, {pairwise.LAUNCHES} times in the tripwire")
+    print(json.dumps({"bench_rows": {
+        "device": nvidia_smi_line(), "steps_per_dispatch": BENCH_ROW_STEPS,
+        "sync_warnings_per_read": calibration, "rows": lines,
+        "tripwire": {"num_envs": bench.EXACTNESS_ENVS, "steps": bench.EXACTNESS_STEPS,
+                     "clean": clean, "tf32_fault": fault}}}), flush=True)
+    return by_path
+
+
 # ------------------------------------------- data parallelism, strict parity
 
 PAR_RANKS = 2                     # ranks sharing the one card (gloo, CUDA tensors)
@@ -2928,6 +3067,7 @@ def main():
     by_path.update(run("eval_trained_net", phase_eval_trained_net, kernels,
                        trained["train_ga3c4"]))
     by_path.update(run("reinforce", phase_reinforce, kernels))
+    by_path.update(run("bench_rows", phase_bench_rows, kernels))
 
     for k, name, main_path in ((k1, "pairwise", "main"), (k2, "raymarch", "laser_full"),
                                (k3, "laser_fused", "laser_fast")):

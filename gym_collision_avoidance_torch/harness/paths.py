@@ -22,7 +22,15 @@
 * ``laser_full`` / ``laser_fast``: ``bench_ga3c20_laser``, 20 GA3C-CADRL
   agents on ``circle_scenario(20, radius=8.0, agent_radius=0.3)``, 512
   beams, the empty 20 x 20 m map, 256 envs, without and with its fast
-  route (wedge culling to 9 discs, 12-sample windows, 4 beam slots).
+  route (wedge culling to 9 discs, 12-sample windows, 4 beam slots);
+* ``ga3c40``: ``bench_ga3c40``'s LargeNumAgents world, 40 GA3C-CADRL agents
+  on ``circle_scenario(40, radius=10.0, agent_radius=0.3)`` as a one-case
+  pool, 19 observed slots sorted closest last, 512 envs.
+
+The fixed-scenario rows of ``scripts/bench_all.py`` (``bench_config``: one
+circle scenario broadcast to every env, stepped with no reset, so that the
+envs go on stepping frozen states once their episodes end) are
+:data:`FIXED_ROWS`, built by :func:`fixed_row`.
 
 Three training paths, each a published recipe of ``scripts/train_ppo.py``,
 run by the port's PPO trainer (:func:`training_path`):
@@ -61,6 +69,7 @@ import torch
 from gym_collision_avoidance_torch.config import EnvConfig
 from gym_collision_avoidance_torch.core.device import params_to_device
 from gym_collision_avoidance_torch.env import autoreset
+from gym_collision_avoidance_torch.env.batch import batched_env_step
 from gym_collision_avoidance_torch.env.step import env_step
 from gym_collision_avoidance_torch.harness.serving import AutoresetServer
 from gym_collision_avoidance_torch.maps import grid
@@ -69,7 +78,7 @@ from gym_collision_avoidance_torch.policies import registry
 from gym_collision_avoidance_torch.scenarios import presets, random_cases
 from gym_collision_avoidance_torch.train.ppo import PPOConfig, PPOTrainer
 
-PATHS = ("main", "ga3c4", "orca4", "cadrl4", "drl2", "laser_full", "laser_fast")
+PATHS = ("main", "ga3c4", "orca4", "cadrl4", "drl2", "laser_full", "laser_fast", "ga3c40")
 TRAIN_PATHS = ("train_ga3c4", "train_drl2", "train_mlp2")
 # The evaluation campaign's 4-agent cells (harness/experiments.py:run_suite_cell:
 # the 500 frozen cases, float32, EnvConfig.evaluate): name -> policy.
@@ -157,6 +166,18 @@ def _one_case(scenario) -> np.ndarray:
                            scenario.radius[:, None]], -1)[None]
 
 
+def ga3c_config(**overrides) -> EnvConfig:
+    """The GA3C rows' EnvConfig: float32, 19 observed slots sorted closest
+    last."""
+    return EnvConfig(dtype="float32", max_num_other_agents_observed=19,
+                     agent_sorting_method="closest_last", **overrides)
+
+
+def ga3c40_scenario():
+    """``bench_ga3c40``'s world: 40 GA3C-CADRL agents on a 10 m circle."""
+    return presets.circle_scenario(40, radius=10.0, agent_radius=0.3, policy="GA3C_CADRL")
+
+
 def serving_path(name: str, device="cuda") -> ServingPath:
     """The path ``name`` (one of :data:`PATHS`) with its weights and map on
     ``device``."""
@@ -171,8 +192,7 @@ def serving_path(name: str, device="cuda") -> ServingPath:
         return ServingPath(name, EnvConfig(dtype="float32", done_mode="evaluate"), pool4,
                            np.full(4, policy, np.int32), None, 16384)
     if name == "ga3c4":
-        cfg = EnvConfig(dtype="float32", done_mode="evaluate", max_num_other_agents_observed=19,
-                        agent_sorting_method="closest_last")
+        cfg = ga3c_config(done_mode="evaluate")
         return ServingPath(name, cfg, pool4, np.full(4, registry.GA3C_CADRL, np.int32),
                            {"ga3c_cadrl": ga3c_cadrl.load_params(device=device)}, 4096)
     if name == "cadrl4":
@@ -187,6 +207,10 @@ def serving_path(name: str, device="cuda") -> ServingPath:
                            np.array([registry.DRL_LONG, registry.RVO], np.int32),
                            {"drl_long": drl_long.load_params(device=device)}, 4096,
                            LASER_SENSORS, DRL2_OBS, static, cells)
+    if name == "ga3c40":
+        return ServingPath(name, ga3c_config(), _one_case(ga3c40_scenario()),
+                           np.full(40, registry.GA3C_CADRL, np.int32),
+                           {"ga3c_cadrl": ga3c_cadrl.load_params(device=device)}, 512)
     cfg = laser_config(name == "laser_fast")
     static, cells = map_inputs(cfg, device)
     sc = presets.circle_scenario(20, radius=8.0, agent_radius=0.3)
@@ -208,6 +232,75 @@ def drl_long_eval_path(num_agents: int = 2, num_cases: int = 500, device="cuda")
     return ServingPath("drl_long_eval", DRL2_CFG, pool, policy_id, None, len(pool),
                        ("laserscan",), DRL2_OBS, None,
                        torch.zeros((0, 2), dtype=torch.int32, device=device))
+
+
+# scripts/bench_all.py's fixed-scenario rows, in its order
+FIXED_ROWS = ("noncoop4", "rvo4", "cadrl4", "ga3c4", "ga3c4_bf16", "ga3c20_laser", "ga3c40")
+FIXED_OBS = ("dist_to_goal",)            # bench_config's states_in_obs
+
+
+@dataclasses.dataclass
+class FixedRow:
+    """A row of ``bench_config`` (``scripts/bench_all.py:26-91``): its
+    config, scenario, weights, world, the divisor of the bench's env count
+    and the dispatches it chains in a timed window."""
+
+    name: str
+    cfg: EnvConfig
+    scenario: presets.Scenario
+    params: Optional[dict]
+    envs_divisor: int = 1
+    pipeline: int = 1
+    sensors: Tuple[str, ...] = ("other_agents_states",)
+    static_cells: Optional[torch.Tensor] = None
+
+    @property
+    def active(self) -> Tuple[int, ...]:
+        return self.scenario.active_policies
+
+    def states(self, num_envs: int, device="cuda"):
+        """The scenario's state broadcast to ``num_envs`` envs on ``device``."""
+        one = self.scenario.to_state(self.cfg, device=device)
+        return one.map(lambda x: x.expand((num_envs,) + tuple(x.shape[1:])).contiguous())
+
+    def step(self, states):
+        """One ``batched_env_step`` as ``bench_config`` takes it: no external
+        actions, ``FIXED_OBS``, no static map (``static_cells`` alone on the
+        laser row)."""
+        return batched_env_step(states, None, self.cfg, self.params, self.active,
+                                self.sensors, FIXED_OBS, None, self.static_cells)
+
+
+def fixed_row(name: str, device="cuda") -> FixedRow:
+    """The fixed-scenario row ``name`` (one of :data:`FIXED_ROWS`) with its
+    weights and cell list on ``device``."""
+    from gym_collision_avoidance_torch.models import cadrl, ga3c_cadrl
+
+    if name not in FIXED_ROWS:
+        raise ValueError(f"unknown row {name!r}; one of {FIXED_ROWS}")
+    cfg4 = EnvConfig(dtype="float32")
+    if name in ("noncoop4", "rvo4"):
+        policy = "noncoop" if name == "noncoop4" else "RVO"
+        return FixedRow(name, cfg4, presets.circle_scenario(4, radius=3.0, agent_radius=0.5,
+                                                            policy=policy), None)
+    if name == "cadrl4":
+        sc = presets.circle_scenario(4, radius=3.0, agent_radius=0.5, policy="CADRL")
+        return FixedRow(name, cfg4, sc, {"cadrl": cadrl.load_params(device=device)}, 4, 2)
+    if name in ("ga3c4", "ga3c4_bf16"):
+        sc = presets.circle_scenario(4, radius=3.0, agent_radius=0.5, policy="GA3C_CADRL")
+        dtype = torch.bfloat16 if name == "ga3c4_bf16" else torch.float32
+        return FixedRow(name, ga3c_config(), sc,
+                        {"ga3c_cadrl": ga3c_cadrl.load_params(dtype=dtype, device=device)}, 4, 8)
+    params = {"ga3c_cadrl": ga3c_cadrl.load_params(device=device)}
+    if name == "ga3c40":
+        return FixedRow(name, ga3c_config(), ga3c40_scenario(), params, 32, 4)
+    # ga3c20_laser: the fast route and the natural (unpadded) cell list of
+    # the empty map, with no static map, as bench_all.py passes them
+    cfg = laser_config(True)
+    cells = torch.as_tensor(grid.occupied_cell_list(grid.load_static_map(cfg, None)),
+                            device=device)
+    sc = presets.circle_scenario(20, radius=8.0, agent_radius=0.3, policy="GA3C_CADRL")
+    return FixedRow(name, cfg, sc, params, 16, 4, LASER_SENSORS, cells)
 
 
 @functools.lru_cache(maxsize=None)

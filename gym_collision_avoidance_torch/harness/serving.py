@@ -152,6 +152,12 @@ class AutoresetServer:
         self._sync()
         return self._states
 
+    def counters(self):
+        """Current ``[E]`` pool counters (with a mesh, this rank's slice),
+        synchronised: env e's episodes so far plus its first case."""
+        self._sync()
+        return self._counters
+
     def episodes_completed(self) -> int:
         """Total episodes finished since construction over every env (syncs),
         summed in int64.  With a mesh it is a collective: every rank calls

@@ -100,10 +100,14 @@ _ENTRY_POINTS = {
     "run_trajectory_dataset_creator_torch": (["--trajs", "1", "--out", "{tmp}/trajs.p"],),
     "collect_regression_dataset_torch": (["--train", "2", "--test", "2", "--agents", "2",
                                           "--out", "{tmp}"],),
+    # the benchmark at a tiny size (bench_torch.py sits at the root)
+    "bench_torch": (["--envs-divisor", "256", "--steps", "2"],),
+    "bench_all_torch": (["--envs", "32", "--steps", "2"],),
 }
+_AT_ROOT = ("bench_torch",)
 _ENTRY_POINT_NO_JAX = """
 import importlib.util, sys, tempfile
-spec = importlib.util.spec_from_file_location("cli", "scripts/{script}.py")
+spec = importlib.util.spec_from_file_location("cli", "{file}")
 cli = importlib.util.module_from_spec(spec); spec.loader.exec_module(cli)
 with tempfile.TemporaryDirectory() as tmp:
     args = [[a.replace("{{tmp}}", tmp) for a in x] if isinstance(x, list) else
@@ -125,7 +129,8 @@ def test_entry_point_cli_imports_no_jax(script):
     else:
         args = (_ENTRY_POINTS[script][0] + ["--device", "cpu"],)
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = _ENTRY_POINT_NO_JAX.format(script=script, args=repr(list(args)))
+    file = f"{script}.py" if script in _AT_ROOT else f"scripts/{script}.py"
+    code = _ENTRY_POINT_NO_JAX.format(file=file, args=repr(list(args)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=repo_root, capture_output=True,
                           text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
@@ -137,7 +142,7 @@ def test_entry_point_cli_defaults_to_cuda_and_raises_without_it(no_cuda, script,
     without one (``regenerate_suites_torch.py`` runs on the host only)."""
     import importlib
 
-    cli = importlib.import_module(f"scripts.{script}")
+    cli = importlib.import_module(script if script in _AT_ROOT else f"scripts.{script}")
     argv = [a.replace("{tmp}", str(tmp_path)) for a in _ENTRY_POINTS[script][0]]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(argv)
