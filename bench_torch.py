@@ -249,7 +249,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=None, help="steps a dispatch of every row")
     args = ap.parse_args(argv)
 
-    from gym_collision_avoidance_torch.core.device import resolve_device
+    from gym_collision_avoidance_torch.core.device import card_label, resolve_device
 
     device = resolve_device(args.device)
     D = args.envs_divisor
@@ -305,7 +305,7 @@ def main(argv=None):
         "episodes_completed": episodes,
         "exactness_checks": exactness,
         "profile": {r["config"]: r.get("env_steps_per_sec", r.get("error")) for r in profile},
-        "device": bench_all_torch.device_line(device),
+        "device": card_label(device),
         "num_envs": envs, "num_steps": steps, "pipeline": pipeline, "reps": reps,
         "window_seconds_min": window,
         "reduced": _cuts(HEADLINE["num_envs"], envs, HEADLINE["num_steps"], steps),

@@ -102,7 +102,16 @@ beside its numbers:
   then timed iterations;
 * sharded_resume (in the rank jobs, 2 gloo ranks and 1 NCCL rank):
   train_mlp2's trainer for 2 iterations against 1, a save, a resume and 1
-  more, bitwise in every leaf of the saved carry.
+  more, bitwise in every leaf of the saved carry;
+* scaling: the multi-device entry points.  ``entry.entry()``'s step of 8
+  GA3C-CADRL envs against the CPU's; ``entry.dryrun_multichip`` on 1 NCCL
+  rank and on 2 gloo ranks sharing the card (its rank body also runs in the
+  rank jobs, K1 held at [2, 4]); ``scripts/scaling_bench_torch.py`` at 1
+  NCCL rank and at 1-2 gloo ranks, ``scripts/collective_overhead_torch.py``
+  on 2 gloo ranks and ``scripts/scaling_multiproc_torch.py`` at 1 rank over
+  gloo and NCCL and 2 gloo ranks, all at small sizes, each rank's launches
+  counted.  Ranks that share the card measure the collectives' overhead,
+  not scaling.
 
 K1's (and on eval_drl_long K2's) first launches in each are held bitwise.
 
@@ -128,6 +137,7 @@ JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -2627,26 +2637,37 @@ def rank_sharded_resume(mesh, kernels, out_dir):
             "file_bytes": os.path.getsize(files["two"])}
 
 
+def rank_dryrun(mesh, kernels):
+    """``entry.dryrun_rank`` on this rank's 2 envs (the batched GA3C step
+    twice, the distributed rollout, one sharded PPO iteration, two sharded
+    serving dispatches), K1's first 2 launches (the batched step's, at [2,
+    4]) held bitwise."""
+    from gym_collision_avoidance_torch import entry
+
+    held = []
+    with held_k1(mesh, f"dryrun over {mesh.backend}", held):
+        result = entry.dryrun_rank(mesh)
+    return dict(result, k1_held=held)
+
+
 RANK_CASES = {"serving": rank_serving, "ga3c4": rank_ga3c4, "rollout": rank_rollout,
-              "sharded_ppo": rank_sharded_ppo}
+              "sharded_ppo": rank_sharded_ppo, "dryrun": rank_dryrun}
 
 
 def rank_main(argv):
-    """A rank of a spawned job: ``--rank-job BACKEND CASES OUT_DIR`` and the
-    rendezvous flags that ``spawn_local`` appends.  Runs each case on this
-    rank's slice and saves ``{case: result}`` to ``OUT_DIR/rank<r>.pt``."""
+    """A rank of a spawned job: ``--rank-job BACKEND CASES`` and the flags
+    that ``run_rank_job`` appends.  Runs each case on this rank's slice and
+    saves ``{case: result}`` for the parent."""
     import argparse
 
     from gym_collision_avoidance_torch.ops import laser_fused, pairwise, raymarch
     from gym_collision_avoidance_torch.parallel import distributed, mesh as pmesh
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--rank-job", nargs=3, metavar=("BACKEND", "CASES", "OUT_DIR"))
-    ap.add_argument("--init-method")
-    ap.add_argument("--num-processes", type=int)
-    ap.add_argument("--process-id", type=int)
+    ap.add_argument("--rank-job", nargs=2, metavar=("BACKEND", "CASES"))
+    distributed.add_rank_flags(ap)
     args = ap.parse_args(argv)
-    backend, cases, out_dir = args.rank_job
+    backend, cases = args.rank_job
     distributed.init_distributed(backend, num_processes=args.num_processes,
                                  process_id=args.process_id, init_method=args.init_method)
     mesh = pmesh.make_mesh(device_type="cuda", device=torch.device(DEVICE, 0))
@@ -2654,41 +2675,38 @@ def rank_main(argv):
     result = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
               "device": str(mesh.device)}
     rank_cases = dict(RANK_CASES, sharded_resume=functools.partial(rank_sharded_resume,
-                                                                   out_dir=out_dir))
+                                                                   out_dir=args.rank_out))
     for case in cases.split(","):
         t0 = time.perf_counter()
         result[case] = rank_cases[case](mesh, kernels)
         result[case]["case_seconds"] = time.perf_counter() - t0
-    torch.save(result, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
-    torch.distributed.destroy_process_group()
+    distributed.save_rank_result(args, mesh, result)
     return 0
 
 
 def phase_parallel_ranks():
     """The spawned jobs: 2 ranks on the one card over gloo (CUDA tensors go
     through the host: NCCL refuses two ranks on one card, and the backend is
-    chosen here, never by a fallback) running serving, ga3c4, the rollout and
-    the sharded trainer; then 1 rank over NCCL running the rollout.  The
+    chosen here, never by a fallback) running serving, ga3c4, the rollout,
+    the sharded trainer, the sharded resume and the dry run's rank body; then
+    1 rank over NCCL running the rollout, the resume and the dry run.  The
     kernels are built already, so the ranks only load them."""
-    import tempfile
-
     from gym_collision_avoidance_torch.parallel import distributed
 
     results = {}
     script = os.path.abspath(__file__)
     for label, backend, ranks, cases in (("gloo", "gloo", PAR_RANKS,
-                                          "serving,ga3c4,rollout,sharded_ppo,sharded_resume"),
-                                         ("nccl", "nccl", 1, "rollout,sharded_resume")):
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as out:
-            t0 = time.perf_counter()
-            distributed.spawn_local([sys.executable, script, "--rank-job", backend, cases, out],
-                                    ranks, threads=None, timeout=600, capture=True)
-            results[label] = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-                              for r in range(ranks)]
-            print(json.dumps({"parallel_ranks": {
-                "backend": backend, "ranks": ranks, "seconds": time.perf_counter() - t0,
-                "case_seconds": [{c: r[c]["case_seconds"] for c in cases.split(",")}
-                                 for r in results[label]]}}), flush=True)
+                                          "serving,ga3c4,rollout,sharded_ppo,sharded_resume,"
+                                          "dryrun"),
+                                         ("nccl", "nccl", 1, "rollout,sharded_resume,dryrun")):
+        t0 = time.perf_counter()
+        results[label] = distributed.run_rank_job([sys.executable, script, "--rank-job",
+                                                   backend, cases], ranks, threads=None,
+                                                  timeout=600)
+        print(json.dumps({"parallel_ranks": {
+            "backend": backend, "ranks": ranks, "seconds": time.perf_counter() - t0,
+            "case_seconds": [{c: r[c]["case_seconds"] for c in cases.split(",")}
+                             for r in results[label]]}}), flush=True)
     for r in results["gloo"]:
         check((r["backend"], r["size"], r["device"]) == ("gloo", PAR_RANKS, "cuda:0"),
               f"gloo rank {r['rank']}: {r['backend']}, {r['size']} ranks, {r['device']}")
@@ -2964,6 +2982,150 @@ def phase_sharded_resume(results):
     return by_path
 
 
+# the scaling phase's sizes: scripts/scaling_bench_torch.py, collective_overhead_torch.py
+# and scaling_multiproc_torch.py cut to fit its 90 s of card time
+SCALE_BENCH = ["--envs-per-device", "16", "--steps", "8", "--reps", "1"]
+SCALE_COLLECTIVES = ["--envs", "1024", "--steps", "16", "--ppo-envs", "64", "--calls", "32",
+                     "--reps", "1"]
+MULTIPROC_STEPS, MULTIPROC_REPS = 16, 1
+SCALE_MULTIPROC = ["--ranks", "1", "--envs", "128", "--steps", str(MULTIPROC_STEPS),
+                   "--reps", str(MULTIPROC_REPS)]
+DRYRUN_K1 = 2 + 2 + 2 + 2 * 32    # the step twice, the rollout, PPO's horizon, 2 dispatches
+
+
+def phase_scaling(results, kernels):
+    """The JAX repo's multi-device entry points as the port runs them, each
+    rank's kernel launches counted from 0:
+
+    * ``entry.entry()``: one step of 8 GA3C-CADRL envs on the card (K1 once,
+      held bitwise), against the same step on the CPU;
+    * ``entry.dryrun_multichip(1)`` over NCCL and ``(2, backend="gloo")`` with
+      the ranks sharing the card: K1 DRYRUN_K1 times a rank, episodes served;
+      its rank body inside the ``--rank-job`` runs, K1 held bitwise at [2, 4]
+      on every rank;
+    * ``scripts/scaling_bench_torch.py`` at 1 NCCL rank and at 1-2 gloo ranks,
+      K1 once a step of every table on every rank;
+    * ``scripts/collective_overhead_torch.py`` on 2 gloo ranks (its recorded
+      all-reduces equal to its accounting, or it raises);
+    * ``scripts/scaling_multiproc_torch.py``: 1 rank over gloo and over NCCL
+      (checksums equal) and the weak point at 2 gloo ranks.
+
+    Ranks that share the card measure the collectives' overhead, not
+    scaling; every number is printed with the card's ``nvidia-smi`` line."""
+    import tempfile
+
+    from gym_collision_avoidance_torch import entry
+    from gym_collision_avoidance_torch.ops import pairwise
+
+    smi = nvidia_smi_line()
+    one_backend = "nccl" if DEVICE == "cuda" else "gloo"
+    note = "ranks that share the card: the collectives' overhead, not scaling"
+    line, by_path = {"device": smi, "note": note}, {}
+
+    # entry(): one step on the card, K1 held, against the CPU's step
+    fn, args = entry.entry(device=DEVICE)
+    zero_counts(kernels)
+    calls, outs = [], []
+    t0 = time.perf_counter()
+    with capture(pairwise, "pairwise_rewards_cuda", calls, outs):
+        states, rew, game_over = fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    by_path["entry"] = rank_counts(kernels)
+    check(by_path["entry"]["pairwise"] == 1 and len(calls) == 1,
+          f"entry: K1 {by_path['entry']}")
+    err = hold_k1(pairwise.pairwise_rewards_plain, calls[0], outs[0], "entry")
+    cpu_fn, cpu_args = entry.entry(device="cpu")
+    cpu_states, cpu_rew, cpu_go = cpu_fn(*cpu_args)
+    check(tuple(rew.shape) == (8, 4) and bool(torch.isfinite(rew).all()), "entry: rewards")
+    check(torch.equal(game_over.cpu(), cpu_go), "entry: game_over differs from the CPU's")
+    for name, got, want in (("rewards", rew, cpu_rew), ("pos", states.pos, cpu_states.pos),
+                            ("vel", states.vel, cpu_states.vel)):
+        check(torch.allclose(got.cpu(), want, **METRICS_TOL),
+              f"entry: {name} apart from the CPU's by {max_abs_err(got.cpu(), want)}")
+    line["entry"] = {"num_envs": 8, "agents": 4, "ms": 1e3 * seconds, "k1_held_max_abs_err": err,
+                     "max_abs_diff_to_cpu": max(max_abs_err(rew.cpu(), cpu_rew),
+                                                max_abs_err(states.pos.cpu(), cpu_states.pos))}
+
+    # dryrun_multichip, as a user calls it, both runs at once (their ranks
+    # start together); its rank body is held in the rank jobs
+    def dryrun(n, backend):
+        t0 = time.perf_counter()
+        return entry.dryrun_multichip(n, device=DEVICE, backend=backend), \
+            time.perf_counter() - t0
+
+    runs = ((one_backend, 1, None), ("gloo", PAR_RANKS, "gloo"))
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        done = [pool.submit(dryrun, n, backend) for _label, n, backend in runs]
+    line["dryrun"] = {}
+    for (label, n, _backend), job in zip(runs, done):
+        ranks, seconds = job.result()
+        for r in ranks:
+            check((r["backend"], r["size"]) == (label, n), f"dryrun: {r['backend']} x {r['size']}")
+            check(r["launches"]["pairwise"] == DRYRUN_K1 and r["episodes"] > 0,
+                  f"dryrun over {label}: rank {r['rank']} K1 {r['launches']}, "
+                  f"{r['episodes']} episodes")
+            by_path[f"dryrun_{label}_rank{r['rank']}"] = r["launches"]
+        line["dryrun"][label] = {"ranks": n, "seconds": seconds,
+                                 "rank_seconds": [r["seconds"] for r in ranks],
+                                 "episodes": ranks[0]["episodes"]}
+    for label, ranks in results.items():
+        runs = [r["dryrun"] for r in ranks]
+        for i, r in enumerate(runs):
+            check(r["launches"]["pairwise"] == DRYRUN_K1,
+                  f"dryrun rank job over {label}: rank {i} K1 {r['launches']}")
+        line["dryrun"][f"{label}_rank_job"] = check_held(runs, f"dryrun over {label}", [2, 4])
+
+    # the three scripts at small sizes
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scaling_") as tmp:
+        bench = script_module("scaling_bench_torch")
+        line["scaling_bench"] = {}
+        for label, argv in ((one_backend, ["--max-ranks", "1"]),
+                            ("gloo", ["--backend", "gloo", "--max-ranks", str(PAR_RANKS)])):
+            t0 = time.perf_counter()
+            r = bench.run(bench.parse_args(argv + SCALE_BENCH + [
+                "--device", DEVICE, "--out", os.path.join(tmp, f"{label}.md")]))
+            reps, S = r["reps"], r["steps"]
+            want = {"rollout_weak": reps * S, "rollout_fixed": reps * S,
+                    "serving_weak": (1 + 4 * reps) * S, "serving_fixed": (1 + 4 * reps) * S,
+                    "ppo": (1 + reps) * r["ppo_horizon"]}
+            for n, per_rank in r["launches_by_rank"].items():
+                for i, tables in enumerate(per_rank):
+                    got = {k: t["pairwise"] for k, t in tables.items()}
+                    check(got == want, f"scaling_bench over {label}, {n} ranks, rank {i}: K1 "
+                                       f"{got}, not {want}")
+                    by_path[f"scaling_bench_{label}_{n}ranks_rank{i}"] = {
+                        k: sum(t[k] for t in tables.values()) for k in kernels}
+            line["scaling_bench"][label] = {"seconds": time.perf_counter() - t0,
+                                            "platform": r["platform"], "tables": r["tables"]}
+        collectives = script_module("collective_overhead_torch")
+        t0 = time.perf_counter()
+        r = collectives.run(collectives.parse_args(
+            ["--device", DEVICE, "--backend", "gloo", "--ranks", str(PAR_RANKS)]
+            + SCALE_COLLECTIVES))
+        for v in r["ppo"]:
+            check(v["warm_up_launches"]["pairwise"] == 16, f"collective_overhead: K1 {v}")
+        line["collective_overhead"] = {
+            "seconds": time.perf_counter() - t0,
+            **{k: r[k] for k in ("backend", "ranks", "traffic", "recorded", "chains", "ppo",
+                                 "overhead_s", "predicted_overhead_s", "one_rank",
+                                 "projection")}}
+        by_path["collective_overhead_rank0"] = r["ppo"][0]["warm_up_launches"]
+        multiproc = script_module("scaling_multiproc_torch")
+        t0 = time.perf_counter()
+        r = multiproc.run(multiproc.parse_args(["--device", DEVICE] + SCALE_MULTIPROC))
+        check(r["fixed_checksums_identical"], f"scaling_multiproc: checksums {r}")
+        for name, point in r.items():
+            if isinstance(point, dict) and "launches_by_rank" in point:
+                for i, counts in enumerate(point["launches_by_rank"]):
+                    check(counts["pairwise"] == (1 + MULTIPROC_REPS) * MULTIPROC_STEPS,
+                          f"scaling_multiproc {name}: rank {i} K1 {counts}")
+                    by_path[f"scaling_multiproc_{name}_rank{i}"] = counts
+        line["scaling_multiproc"] = {"seconds": time.perf_counter() - t0, **r}
+    print(json.dumps({"scaling": line}), flush=True)
+    return by_path
+
+
 def phase_strict_parity(kernels):
     """STRICT_STEPS auto-reset steps of the main path at E = STRICT_ENVS with
     ``strict_parity=True`` on the card against the CPU: pos, heading, vel and
@@ -3062,6 +3224,7 @@ def main():
     by_path.update(run("parallel_nccl", phase_parallel_nccl, ranks))
     by_path.update(run("sharded_ppo", phase_sharded_ppo, ranks["gloo"]))
     by_path.update(run("sharded_resume", phase_sharded_resume, ranks))
+    by_path.update(run("scaling", phase_scaling, ranks, kernels))
     by_path.update(run("strict_parity", phase_strict_parity, kernels))
     by_path.update(run("eval_drl_long", phase_eval_drl_long, kernels))
     by_path.update(run("eval_trained_net", phase_eval_trained_net, kernels,

@@ -8,6 +8,7 @@ CPU (the tests) says so.
 from __future__ import annotations
 
 import copy
+import subprocess
 
 import numpy as np
 import torch
@@ -63,3 +64,16 @@ def as_device_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
     keeps the card's queue free of host copies."""
     return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x), dtype=dtype,
                            device=device)
+
+
+def card_label(device) -> str:
+    """``nvidia-smi``'s name and power limit of ``device``'s card (``name,
+    power.limit``), or ``cpu``: what a measurement names beside its numbers."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    out = subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip()

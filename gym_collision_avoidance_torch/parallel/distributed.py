@@ -22,12 +22,20 @@
 With no coordinator configured :func:`init_distributed` does nothing, and
 the mesh is one process, so single-process code takes the same path.
 
+A program that starts its own local ranks (the dry run, the scaling
+scripts) picks their backend with :func:`choose_backend` (NCCL needs a card
+a rank), runs them with :func:`run_rank_job` (each rank joins with
+:func:`join_rank_job` and returns a dict with :func:`save_rank_result`), and
+times a window on every rank with :func:`timed_over_ranks`: a barrier that
+drains each device, then the slowest rank's time.
+
 Launch: ``scripts/launch_multihost_torch.py`` (one process per host or card;
 ``--spawn N`` starts N local ranks), ``torchrun``, or :func:`spawn_local`.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import tempfile
@@ -47,6 +55,29 @@ from gym_collision_avoidance_torch.policies import registry as policies
 from gym_collision_avoidance_torch.utils import checkpoint
 
 BACKENDS = ("nccl", "gloo")
+
+
+def choose_backend(device_type: str, num_ranks: int, backend: Optional[str] = None) -> str:
+    """The backend of ``num_ranks`` local ranks on ``device_type``: the
+    caller's, or NCCL on ``cuda`` and gloo on ``cpu`` when it is None.
+
+    NCCL needs a card of its own for each rank: it refuses two ranks on one
+    card, so NCCL with more ranks than visible cards raises, as NCCL on the
+    CPU does.  Gloo ranks share a card only when the caller asks for gloo.
+    There is no fallback from one backend to the other.
+    """
+    if backend is None:
+        backend = "nccl" if device_type == "cuda" else "gloo"
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "nccl":
+        if device_type != "cuda":
+            raise ValueError("NCCL runs on CUDA cards only; use backend='gloo' on the CPU")
+        cards = torch.cuda.device_count()
+        if num_ranks > cards:
+            raise RuntimeError(f"NCCL needs one card per rank: {num_ranks} ranks, {cards} "
+                               "visible cards (backend='gloo' lets ranks share a card)")
+    return backend
 
 
 def init_distributed(
@@ -250,6 +281,77 @@ def make_distributed_rollout(
     if with_params:
         return run
     return lambda states: run(states)
+
+
+def sync_ranks(mesh: EnvMesh) -> None:
+    """Wait until this rank's device has finished its queued work and every
+    rank has got here: a barrier that also drains the device, so that a
+    window timed after it starts on every rank together."""
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    mesh.psum(torch.zeros(1, device=mesh.device)).item()
+
+
+def gather_scalars(mesh: EnvMesh, value: float) -> List[float]:
+    """Every rank's ``value``, in rank order, on every rank (one
+    ``all_reduce`` of a ``[D]`` float64 buffer that holds each rank's value
+    in its own slot)."""
+    buf = torch.zeros(mesh.size, dtype=torch.float64, device=mesh.device)
+    buf[mesh.rank] = float(value)
+    return mesh.psum(buf).tolist()
+
+
+def timed_over_ranks(mesh: EnvMesh, fn: Callable):
+    """``(seconds, fn())``: the window from a :func:`sync_ranks` to the end
+    of ``fn``'s device work on the slowest rank, the maximum over the ranks
+    of each one's window (taken after the window closes), the same on every
+    rank."""
+    sync_ranks(mesh)
+    t0 = time.perf_counter()
+    out = fn()
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    seconds = time.perf_counter() - t0
+    return max(gather_scalars(mesh, seconds)), out
+
+
+def run_rank_job(command: Sequence[str], num_processes: int, threads: Optional[int] = 1,
+                 timeout: Optional[float] = None) -> List[dict]:
+    """Run ``command`` on ``num_processes`` local ranks (:func:`spawn_local`)
+    with ``--rank-out DIR`` appended; each rank saves its result dict with
+    :func:`save_rank_result`.  Returns the results in rank order; raises
+    :class:`RankFailed` if a rank fails."""
+    with tempfile.TemporaryDirectory(prefix="gca_job_") as out:
+        spawn_local([*command, "--rank-out", out], num_processes, threads=threads,
+                    timeout=timeout, capture=True)
+        return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                for r in range(num_processes)]
+
+
+def add_rank_flags(parser) -> None:
+    """The flags that :func:`spawn_local` and :func:`run_rank_job` append to
+    a rank's command, hidden from ``--help``."""
+    for flag, kind in (("--init-method", str), ("--num-processes", int),
+                       ("--process-id", int), ("--rank-out", str)):
+        parser.add_argument(flag, type=kind, default=None, help=argparse.SUPPRESS)
+
+
+def join_rank_job(args, backend: str, device_type: str) -> EnvMesh:
+    """A rank of :func:`run_rank_job` (``args`` parsed with
+    :func:`add_rank_flags`): join the process group over ``backend`` and
+    return the mesh, this rank on its ``device_type`` device."""
+    init_distributed(backend, num_processes=args.num_processes, process_id=args.process_id,
+                     init_method=args.init_method)
+    return make_mesh(device_type=device_type)
+
+
+def save_rank_result(args, mesh: EnvMesh, result: dict) -> None:
+    """A rank's side of :func:`run_rank_job`: write ``result`` (tensors,
+    numbers, lists and dicts) where the parent reads it, and leave the
+    process group."""
+    torch.save(result, os.path.join(args.rank_out, f"rank{mesh.rank}.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 class RankFailed(RuntimeError):

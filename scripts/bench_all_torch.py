@@ -35,7 +35,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -44,15 +43,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 JAX_REPS = 3   # bench_config's and _autoreset_serving's timed windows
-
-
-def device_line(device) -> str:
-    """``nvidia-smi``'s name and power limit of the card, or ``cpu``."""
-    if torch.device(device).type != "cuda":
-        return "cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def _sync(device):
@@ -255,7 +245,7 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
-    from gym_collision_avoidance_torch.core.device import resolve_device
+    from gym_collision_avoidance_torch.core.device import card_label, resolve_device
 
     device = resolve_device(args.device)
     results = []
@@ -264,7 +254,7 @@ def main(argv=None):
             continue
         results.append(fn(args.envs, args.steps, device=device))
         print(json.dumps(results[-1]), flush=True)
-    print(json.dumps({"all": results, "device": device_line(device)}))
+    print(json.dumps({"all": results, "device": card_label(device)}))
     return 0
 
 

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import time
 
@@ -105,19 +104,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def device_label(device: str) -> str:
-    """``nvidia-smi``'s name and power limit of the card, or ``cpu``."""
-    if device != "cuda":
-        return "cpu"
-    import torch
-
-    index = torch.cuda.current_device()
-    out = subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return out.stdout.strip()
-
-
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -135,7 +121,7 @@ def main(argv=None) -> int:
     import torch
 
     from gym_collision_avoidance_torch import convert
-    from gym_collision_avoidance_torch.core.device import resolve_device
+    from gym_collision_avoidance_torch.core.device import card_label, resolve_device
     from gym_collision_avoidance_torch.policies import registry as P
     from gym_collision_avoidance_torch.scenarios import random_cases
     from gym_collision_avoidance_torch.parallel import distributed as dist
@@ -173,7 +159,7 @@ def main(argv=None) -> int:
     carry = init_fn(ppo.seed)
     # every rank draws the same global noise and reads its rows of it
     gen = torch.Generator(device).manual_seed(ppo.seed + 7)
-    label = device_label(device.type)
+    label = card_label(device)
     say = print if lead else (lambda *a, **k: None)
     say(f"obs_dim={obs_dim} envs={args.envs} horizon={args.horizon} "
         f"agents={args.agents} traffic={args.traffic} devices={args.devices} device={label}")

@@ -2,7 +2,7 @@
 
 A test writes a job (a dict: the cases to run and their inputs) with
 ``torch.save`` and calls :func:`run_ranks`, which starts N copies of this
-file through ``parallel.distributed.spawn_local`` (a file rendezvous, one
+file through ``parallel.distributed.run_rank_job`` (a file rendezvous, one
 intra-op thread each) and returns each rank's results.  A rank runs every
 case of the job on its slice of the env batch and saves ``{case: result}``.
 This file imports neither jax nor the JAX package, so a rank starts in a few
@@ -30,13 +30,9 @@ def run_ranks(job, num_ranks, tmp_path, timeout=240):
     """Run ``job`` on ``num_ranks`` ranks; returns their results in rank
     order."""
     job_file = os.path.join(tmp_path, f"job{num_ranks}.pt")
-    out_dir = os.path.join(tmp_path, f"out{num_ranks}")
-    os.makedirs(out_dir, exist_ok=True)
     torch.save(job, job_file)
-    dist.spawn_local([sys.executable, os.path.abspath(__file__), job_file, out_dir],
-                     num_ranks, timeout=timeout, capture=True)
-    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
-            for r in range(num_ranks)]
+    return dist.run_rank_job([sys.executable, os.path.abspath(__file__), job_file], num_ranks,
+                             timeout=timeout)
 
 
 def record_grads(trainer):
@@ -151,6 +147,71 @@ def case_ppo(mesh, job, name):
             "noise": drawn, "grads": grads}
 
 
+def case_entry_rollout(mesh, job):
+    """``make_distributed_rollout(..., with_params=True)`` of the entry
+    point's GA3C-CADRL config on this rank's slice of the job's states, the
+    weights broadcast from rank 0 (``entry.dryrun_rank``'s part (b))."""
+    from gym_collision_avoidance_torch import entry
+
+    kw = job["entry_rollout"]
+    cfg, sc, _one, params = entry.build_batch(1, device=DEVICE)
+    states = pmesh.shard_env_batch(convert.state_from_numpy(kw["states"], device=DEVICE), mesh)
+    run = dist.make_distributed_rollout(cfg, kw["steps"], mesh, sc.active_policies,
+                                        with_params=True)
+    final, metrics = run(states, dist.replicate_global(params, mesh))
+    return {"metrics": metrics, "states": convert.state_to_numpy(final)}
+
+
+def case_count_all_reduce(mesh, job):
+    """Every ``torch.distributed.all_reduce`` (calls, bytes) of one
+    ``make_sharded_ppo`` iteration, of one ``AutoresetServer`` dispatch and
+    ``episodes_completed`` call, and of one ``make_distributed_rollout``
+    dispatch, recorded by wrapping the function."""
+    import numpy as np
+
+    from gym_collision_avoidance_torch.env.step import env_reset
+    from gym_collision_avoidance_torch.harness.serving import AutoresetServer
+    from gym_collision_avoidance_torch.scenarios import presets, random_cases
+    from gym_collision_avoidance_torch.train import ppo as tppo
+
+    kw = job["count_all_reduce"]
+    seen = []
+    orig = torch.distributed.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        seen.append(tensor.numel() * tensor.element_size())
+        return orig(tensor, *args, **kwargs)
+
+    def record(fn):
+        seen.clear()
+        torch.distributed.all_reduce = counted
+        try:
+            fn()
+        finally:
+            torch.distributed.all_reduce = orig
+        return {"calls": len(seen), "bytes": sum(seen)}
+
+    step, init_fn, _ = tppo.make_sharded_ppo(tppo.PPOConfig(**kw["ppo"]), mesh)
+    carry = init_fn(0)
+    out = {"ppo": record(lambda: step(*carry, rng=torch.Generator().manual_seed(1)))}
+    A, S = kw["num_agents"], kw["steps"]
+    server = AutoresetServer(EnvConfig(dtype="float32", done_mode="evaluate"),
+                             random_cases.scenario_pool(8, A, seed=0, side_length=4.0),
+                             np.full(A, 1, np.int32), num_envs=kw["envs"],
+                             steps_per_dispatch=S, mesh=mesh)
+    out["serving_dispatch"] = record(server.dispatch)
+    out["episodes_completed"] = record(server.episodes_completed)
+    cfg = EnvConfig.evaluate(dtype="float32")
+    sc = presets.circle_scenario(A, radius=4.0, agent_radius=0.4)
+    base, _ = env_reset(sc.to_state(cfg, device=DEVICE), cfg)
+    states = dist.host_local_batch(
+        lambda idx: base.map(lambda x: x.repeat((len(idx),) + (1,) * (x.dim() - 1))),
+        kw["envs"], mesh)
+    run = dist.make_distributed_rollout(cfg, S, mesh, sc.active_policies)
+    out["rollout_dispatch"] = record(lambda: run(states))
+    return out
+
+
 def case_slice(mesh, job):
     """``process_env_slice`` of the job's env counts: a slice or the error."""
     out = {}
@@ -165,26 +226,21 @@ def case_slice(mesh, job):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("job")
-    ap.add_argument("out_dir")
-    ap.add_argument("--init-method", required=True)
-    ap.add_argument("--num-processes", type=int, required=True)
-    ap.add_argument("--process-id", type=int, required=True)
+    dist.add_rank_flags(ap)
     args = ap.parse_args()
     torch.set_num_threads(1)
     job = torch.load(args.job, weights_only=False)
-    dist.init_distributed("gloo", num_processes=args.num_processes,
-                          process_id=args.process_id, init_method=args.init_method)
-    mesh = pmesh.make_mesh(device_type="cpu")
+    mesh = dist.join_rank_job(args, "gloo", "cpu")
     cases = {"server": case_server, "batched_step": case_batched_step,
-             "rollout": case_rollout, "slice": case_slice}
+             "rollout": case_rollout, "slice": case_slice, "entry_rollout": case_entry_rollout,
+             "count_all_reduce": case_count_all_reduce}
     result = {"rank": mesh.rank, "size": mesh.size}
     for name in job["cases"]:
         if name.startswith("ppo"):
             result[name] = case_ppo(mesh, job, name)
         else:
             result[name] = cases[name](mesh, job)
-    torch.save(result, os.path.join(args.out_dir, f"rank{mesh.rank}.pt"))
-    torch.distributed.destroy_process_group()
+    dist.save_rank_result(args, mesh, result)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ for name in ("maps.grid", "ops.pairwise", "ops.raymarch", "ops.laser_fused", "op
              "train.ppo", "train.optim", "utils.checkpoint", "scenarios.suites",
              "harness.experiments", "harness.registry", "harness.datasets",
              "harness.visualize", "env.gymapi", "obs.wrappers", "parallel.mesh",
-             "parallel.distributed", "utils.profiling"):
+             "parallel.distributed", "utils.profiling", "entry"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gym_collision_avoidance_tpu"))
@@ -70,6 +70,25 @@ def test_launcher_imports_no_jax():
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
 
 
+def test_entry_module_runs_without_jax():
+    """``gym_collision_avoidance_torch/entry.py`` (the counterpart of
+    ``__graft_entry__.py``) steps its batch and dry-runs one gloo rank on the
+    CPU without importing jax or the JAX package."""
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys\n"
+            "from gym_collision_avoidance_torch import entry\n"
+            "fn, args = entry.entry(device='cpu')\n"
+            "states, rewards, game_over = fn(*args)\n"
+            "assert tuple(rewards.shape) == (8, 4) and tuple(game_over.shape) == (8,)\n"
+            "assert entry.dryrun_multichip(1, device='cpu')[0]['episodes'] > 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'gym_collision_avoidance_tpu'))\n"
+            "assert not bad, bad\nprint('ok')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo_root, capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
 def test_training_cli_imports_no_jax():
     """``scripts/train_ppo_torch.py`` trains an iteration on the CPU without
     importing jax or the JAX package."""
@@ -103,6 +122,13 @@ _ENTRY_POINTS = {
     # the benchmark at a tiny size (bench_torch.py sits at the root)
     "bench_torch": (["--envs-divisor", "256", "--steps", "2"],),
     "bench_all_torch": (["--envs", "32", "--steps", "2"],),
+    # the multi-device entry points at their smallest size, on 1 gloo rank
+    "scaling_bench_torch": (["--max-ranks", "1", "--envs-per-device", "2", "--steps", "2",
+                             "--reps", "1", "--out", "{tmp}/scaling.md"],),
+    "collective_overhead_torch": (["--ranks", "1", "--ppo-envs", "4", "--envs", "4",
+                                   "--steps", "2", "--calls", "2", "--reps", "1"],),
+    "scaling_multiproc_torch": (["--ranks", "1", "--envs", "4", "--steps", "2",
+                                 "--reps", "1"],),
 }
 _AT_ROOT = ("bench_torch",)
 _ENTRY_POINT_NO_JAX = """
