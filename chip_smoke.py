@@ -520,7 +520,9 @@ def traced_dispatch(server, steps):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         server.dispatch()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the device-side copies of the port's gca.* spans are no kernels
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("gca.")]
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0) + 1

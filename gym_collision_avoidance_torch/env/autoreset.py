@@ -27,6 +27,7 @@ from gym_collision_avoidance_torch.core.state import EnvState, init_state
 from gym_collision_avoidance_torch.env.step import env_reset, env_step
 from gym_collision_avoidance_torch.obs import spec as obs_spec
 from gym_collision_avoidance_torch.policies import registry as policies
+from gym_collision_avoidance_torch.utils import profiling
 
 
 def state_from_case(cfg: EnvConfig, case, policy_id, dynamics_id=None, rng=None,
@@ -92,7 +93,8 @@ def make_autoreset_step(
         ``[E]`` int32 tensor (give each env a different start, e.g.
         ``arange(E)``).  On reset steps the returned state and obs are the
         new episode's first ones; ``info`` describes the step that ended the
-        old episode, whose exactness the guard certifies.
+        old episode, whose exactness the guard certifies.  A profiler's
+        trace marks each call ``gca.step`` and its reset pick ``gca.reset``.
     """
     device = resolve_device(device)
     fast_laser = (cfg.laserscan_entry_window is not None
@@ -116,20 +118,22 @@ def make_autoreset_step(
     N = pool_states.num_envs
 
     def step(state: EnvState, counter, external=None):
-        state, obs, rewards, game_over, info = env_step(
-            state, external, cfg, params, active_policies, sensors, states_in_obs,
-            static_map, static_cells,
-        )
-        pick = (counter % N).long()
+        with profiling.span("gca.step"):
+            state, obs, rewards, game_over, info = env_step(
+                state, external, cfg, params, active_policies, sensors, states_in_obs,
+                static_map, static_cells,
+            )
+            with profiling.span("gca.reset"):
+                pick = (counter % N).long()
 
-        def sel(fresh, old):
-            cond = game_over.reshape((-1,) + (1,) * (old.dim() - 1))
-            return torch.where(cond, fresh[pick], old)
+                def sel(fresh, old):
+                    cond = game_over.reshape((-1,) + (1,) * (old.dim() - 1))
+                    return torch.where(cond, fresh[pick], old)
 
-        rng = state.rng
-        state = pool_states.map(sel, state).replace(rng=rng)
-        obs = {k: sel(pool_obs[k], v) for k, v in obs.items()}
-        counter = counter + game_over.to(counter.dtype)
+                rng = state.rng
+                state = pool_states.map(sel, state).replace(rng=rng)
+                obs = {k: sel(pool_obs[k], v) for k, v in obs.items()}
+                counter = counter + game_over.to(counter.dtype)
         if return_info:
             return state, counter, obs, rewards, game_over, info
         return state, counter, obs, rewards, game_over

@@ -12,6 +12,9 @@ The JAX step is written for one env and vmapped; this one takes
 4. sensing and observation assembly,
 5. done flags and the per-env game-over reduction.
 
+Phases 1-4 are marked ``gca.policy``, ``gca.dynamics``, ``gca.rewards`` and
+``gca.observe`` in a profiler's trace (:func:`utils.profiling.span`).
+
 ``static_map`` (``[H, W]`` bool, :func:`maps.grid.load_static_map`) adds
 wall collisions when ``cfg.use_static_map`` and feeds the dense laserscan
 and the occupancy grid; ``static_cells`` (``[S, 2]``,
@@ -35,6 +38,7 @@ from gym_collision_avoidance_torch.obs import sensors as sensors_mod
 from gym_collision_avoidance_torch.obs import spec as obs_spec
 from gym_collision_avoidance_torch.ops import pairwise
 from gym_collision_avoidance_torch.policies import registry as policies
+from gym_collision_avoidance_torch.utils import profiling
 
 
 def _take_actions(state: EnvState, actions: torch.Tensor, cfg: EnvConfig) -> EnvState:
@@ -279,17 +283,21 @@ def env_step(
         pin = (state.policy_id == policies.STATIC) & ~state.is_done
         state = state.replace(goal=torch.where(pin[..., None], state.pos, state.goal))
 
-    actions = policies.compute_actions(state, ext_actions, cfg, params, active_policies)
-    if cfg.cast_actions_to_f32:
-        # The reference buffers all actions through a float32 array
-        # (envs/collision_avoidance_env.py:304-306).
-        actions = actions.to(torch.float32).to(state.pos.dtype)
+    with profiling.span("gca.policy"):
+        actions = policies.compute_actions(state, ext_actions, cfg, params, active_policies)
+        if cfg.cast_actions_to_f32:
+            # The reference buffers all actions through a float32 array
+            # (envs/collision_avoidance_env.py:304-306).
+            actions = actions.to(torch.float32).to(state.pos.dtype)
 
     static_map = _on_device(static_map, torch.bool, state.pos.device)
-    state = _take_actions(state, actions, cfg)
-    state, rewards = _compute_rewards(state, cfg, static_map)
-    state, obs, sense_info = _sense_and_observe(state, cfg, sensors, states_in_obs,
-                                                static_map, static_cells)
+    with profiling.span("gca.dynamics"):
+        state = _take_actions(state, actions, cfg)
+    with profiling.span("gca.rewards"):
+        state, rewards = _compute_rewards(state, cfg, static_map)
+    with profiling.span("gca.observe"):
+        state, obs, sense_info = _sense_and_observe(state, cfg, sensors, states_in_obs,
+                                                    static_map, static_cells)
     state, which_done, game_over = _check_dones(state, cfg)
     state = state.replace(episode_step=state.episode_step + 1)
 

@@ -12,7 +12,9 @@ Example::
 PyTorch calls and returns per-step stacked outputs ``[S, ...]``: the
 requested ``collect`` obs keys, ``mean_reward`` and ``obs_checksum``, and
 with a fast laserscan route ``exactness_overflow``.  It does not
-synchronise; reading a value does.
+synchronise; reading a value does.  A profiler's trace marks each call
+``gca.dispatch``, around the phase spans of its steps
+(:mod:`utils.profiling`).
 
 With ``mesh`` (a :class:`parallel.mesh.EnvMesh`) every rank builds and steps
 only its slice of the ``num_envs`` envs, and its counters start at the
@@ -40,6 +42,7 @@ from gym_collision_avoidance_torch.core.device import resolve_device
 from gym_collision_avoidance_torch.env import autoreset
 from gym_collision_avoidance_torch.obs import spec as obs_spec
 from gym_collision_avoidance_torch.parallel.mesh import EnvMesh, pool_rows
+from gym_collision_avoidance_torch.utils import profiling
 
 
 class AutoresetServer:
@@ -111,22 +114,23 @@ class AutoresetServer:
     def dispatch(self):
         """Run S steps; returns stacked ``[S, ...]`` outputs without
         synchronising."""
-        outs = {k: [] for k in self.collect}
-        rewards, checksums, overflows = [], [], []
-        st, c = self._states, self._counters
-        for _ in range(self.steps_per_dispatch):
-            st, c, obs, rew, _go, info = self._step(st, c)
-            for k in self.collect:
-                outs[k].append(obs[k])
-            rewards.append(rew.sum(dim=-1))                  # [E]
-            checksums.append(obs["dist_to_goal"].sum(dim=-1))  # [E, A]
-            if "laserscan_exactness_overflow" in info:
-                overflows.append(info["laserscan_exactness_overflow"].any())
-        self._states, self._counters = st, c
-        out = {k: torch.stack(v) for k, v in outs.items()}
-        out.update(self._reduce(rewards, checksums, overflows))
-        if overflows:
-            self._overflow = self._overflow | out["exactness_overflow"].any()
+        with profiling.span("gca.dispatch"):
+            outs = {k: [] for k in self.collect}
+            rewards, checksums, overflows = [], [], []
+            st, c = self._states, self._counters
+            for _ in range(self.steps_per_dispatch):
+                st, c, obs, rew, _go, info = self._step(st, c)
+                for k in self.collect:
+                    outs[k].append(obs[k])
+                rewards.append(rew.sum(dim=-1))                  # [E]
+                checksums.append(obs["dist_to_goal"].sum(dim=-1))  # [E, A]
+                if "laserscan_exactness_overflow" in info:
+                    overflows.append(info["laserscan_exactness_overflow"].any())
+            self._states, self._counters = st, c
+            out = {k: torch.stack(v) for k, v in outs.items()}
+            out.update(self._reduce(rewards, checksums, overflows))
+            if overflows:
+                self._overflow = self._overflow | out["exactness_overflow"].any()
         return out
 
     def _reduce(self, rewards, checksums, overflows):

@@ -2,12 +2,19 @@
 """Where the time of the PyTorch port's serving loop goes, on one CUDA card.
 
 Builds an ``AutoresetServer`` for one of the port's paths, warms it up,
-then traces one dispatch of ``--steps`` steps with ``torch.profiler`` and
-prints one JSON line: wall time per step, device busy time per step (the sum
-of kernel times, no overlap on one stream), the device's idle share, kernel
-launches per step, the hand-written kernels' shares, and the ten kernels
-that take the most device time.  The card's ``nvidia-smi`` name and power
-limit go beside the numbers.
+times 5 dispatches of ``--steps`` steps on the host clock (to a
+synchronise), then traces one more with ``torch.profiler`` and prints one
+JSON line: the untraced and the traced wall time per step, device busy time
+per step (the device operations' intervals merged), the device's idle share
+(1 - busy over the untraced wall), kernel launches per step, the hand-written
+kernels' shares, the ten kernels that take the most device time, the share of
+the reset pick's gathered pool rows that an episode's reset keeps
+(``reset_useful_pct``: episodes finished over E x steps, untraced), and one row
+per span of the port's step (``gca.*``, :mod:`utils.profiling`): its own
+host ms a step (its duration less its child spans'), and the device ms and
+kernels a step of the operations whose launch call ran while it was the
+innermost open span (the call found by the profiler's correlation id).  The
+card's ``nvidia-smi`` name and power limit go beside the numbers.
 
 ``--config`` names one of the paths of
 ``gym_collision_avoidance_torch/harness/paths.py`` (main, ga3c4, orca4,
@@ -39,6 +46,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -47,11 +55,75 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from perfbench.trace import Trace  # noqa: E402  (the benchmark's busy time)
+
+# device operations that are not kernels
+NOT_KERNELS = ("Memcpy", "Memset")
+# untraced dispatches timed before the traced one
+UNTRACED_DISPATCHES = 5
+# the host side of a launch: a CUDA runtime or driver call
+RUNTIME_CALL = re.compile(r"cu(da)?[A-Z]")
+
 
 def nvidia_smi():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def device_ops(events):
+    """The device's work among profiler events: kernels, copies and fills,
+    less the device-side copies of ``record_function`` ranges (the port's
+    ``gca.*`` spans, the trainer's ``ppo_*`` phases), left out both by the
+    profiler's flag and by name."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(("gca.", "ppo_"))]
+
+
+def span_rows(events, per):
+    """One row per ``gca.*`` span name among the raw profiler events
+    ``events`` (``prof.profiler.kineto_results.events()``), divided by
+    ``per``: ``host_ms``, the host time of its ranges less the part their
+    child spans cover; ``device_ms`` and ``kernels``, those of the device
+    operations whose launch call ran while the span was the innermost one
+    open.  A launch call is the CUDA runtime or driver call (``cuda*``,
+    ``cu*``) that shares the operation's correlation id; operations with
+    none inside a span make the row ``(none)``."""
+    def on_host(ev):
+        return "CUDA" not in str(ev.device_type())
+
+    spans = sorted(((ev.name(), ev.start_ns(), ev.end_ns()) for ev in events
+                    if on_host(ev) and ev.name().startswith("gca.")),
+                   key=lambda sp: (sp[1], -sp[2]))
+    launch = {ev.correlation_id(): ev.start_ns() for ev in events
+              if on_host(ev) and RUNTIME_CALL.match(ev.name())}
+
+    def innermost(t):
+        inside = [sp for sp in spans if sp[1] <= t < sp[2]]
+        return max(inside, key=lambda sp: sp[1])[0] if inside else "(none)"
+
+    rows = {}
+
+    def row(name):
+        return rows.setdefault(name, {"host_ms": 0.0, "device_ms": 0.0, "kernels": 0})
+
+    for i, (name, start, end) in enumerate(spans):
+        children, last = 0, start
+        for _, c_start, c_end in spans[i + 1:]:
+            if c_start >= end:
+                break
+            if c_start >= last:     # a direct child: not inside an earlier one
+                children += c_end - c_start
+                last = c_end
+        row(name)["host_ms"] += (end - start - children) / 1e6 / per
+    for ev in events:
+        if (not on_host(ev) and not ev.is_user_annotation()
+                and not ev.name().startswith(("gca.", "ppo_"))):
+            r = row(innermost(launch.get(ev.correlation_id(), -1)))
+            r["device_ms"] += (ev.end_ns() - ev.start_ns()) / 1e6 / per
+            r["kernels"] += 1 / per
+    return rows
 
 
 def _kernel_shares(kernels, per):
@@ -98,9 +170,7 @@ def trace_iteration(trainer, carry, gen, trace=None):
         os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
         prof.export_chrome_trace(trace)
     events = prof.events()
-    # device events, less the GPU copies of the phases' ranges (annotations)
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("ppo_")]
+    kernels = device_ops(events)
     ranges = {e.name[len("ppo_"):]: e.time_range for e in events
               if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("ppo_")}
     phases = {}
@@ -171,7 +241,7 @@ def profile_suite(name: str, steps: int, trace=None) -> dict:
     if trace:
         os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
         prof.export_chrome_trace(trace)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_ops(prof.events())
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_name, shares = _kernel_shares(kernels, steps)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
@@ -185,6 +255,66 @@ def profile_suite(name: str, steps: int, trace=None) -> dict:
                for k, v in shares.items()},
             "top_kernels": [{"name": n[:80], "calls": c, "device_ms": t / 1e3}
                             for n, (c, t) in top]}
+
+
+def profile_serving(name: str, num_envs=None, steps: int = 32, trace=None,
+                    device="cuda") -> dict:
+    """One traced dispatch of ``steps`` steps of the serving path ``name``
+    (at ``num_envs`` envs if given) after one warm-up dispatch and
+    :data:`UNTRACED_DISPATCHES` timed ones; on the CPU the device columns
+    read "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gym_collision_avoidance_torch.harness import paths
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    path = paths.serving_path(name, device)
+    num_envs = num_envs or path.num_envs
+    server = path.server(num_envs=num_envs, steps_per_dispatch=steps, device=device)
+    server.dispatch()
+    episodes = server.episodes_completed()          # synchronises
+    t0 = time.perf_counter()
+    for _ in range(UNTRACED_DISPATCHES):
+        server.dispatch()
+    sync()
+    untraced = (time.perf_counter() - t0) / UNTRACED_DISPATCHES
+    # every env's reset pick gathers a pool row each step; a finished episode
+    # keeps one (both counts over all envs, every rank's under a mesh)
+    episodes = server.episodes_completed() - episodes
+    gathered = server.num_envs * steps * UNTRACED_DISPATCHES
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        server.dispatch()
+        sync()
+        wall = time.perf_counter() - t0
+    if trace:
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(trace)
+
+    events = prof.events()
+    ops = device_ops(events)
+    kernels = [e for e in ops if not e.name.startswith(NOT_KERNELS)]
+    busy = Trace(ops=[(e.name, e.time_range.start, e.time_range.end) for e in ops],
+                 spans=[], window_s=0.0, steps=steps).busy_s() / 1e3
+    by_name, shares = _kernel_shares(kernels, steps)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {
+        "device": nvidia_smi() if cuda else "cpu", "config": name, "num_envs": num_envs,
+        "steps": steps, "untraced_wall_ms_per_step": 1e3 * untraced / steps,
+        "wall_ms_per_step": 1e3 * wall / steps,
+        "device_busy_ms_per_step": busy / steps if ops else "not measured",
+        "device_idle_share": (1 - busy / 1e3 / untraced) if ops else "not measured",
+        "kernels_per_step": len(kernels) / steps,
+        **{f"{k[:-3]}_ms_per_step" if k.endswith("_ms") else f"{k}_per_step": v
+           for k, v in shares.items()},
+        "reset_useful_pct": 100 * episodes / gathered,
+        "spans_per_step": span_rows(prof.profiler.kineto_results.events(), steps),
+        "top_kernels": [{"name": n[:80], "calls": c, "device_ms": t / 1e3}
+                        for n, (c, t) in top],
+    }
 
 
 def main():
@@ -211,39 +341,8 @@ def main():
                                                                args.num_envs)}))
         return 0
 
-    from torch.profiler import ProfilerActivity, profile
-
-    path = paths.serving_path(args.config)
-    args.num_envs = args.num_envs or path.num_envs
-    server = path.server(num_envs=args.num_envs, steps_per_dispatch=args.steps)
-    server.dispatch()
-    torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        server.dispatch()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if args.trace:
-        os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
-        prof.export_chrome_trace(args.trace)
-
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    steps = args.steps
-    by_name, shares = _kernel_shares(kernels, steps)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    print(json.dumps({"profile_serving": {
-        "device": nvidia_smi(), "config": args.config, "num_envs": args.num_envs,
-        "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
-        "device_busy_ms_per_step": (busy_us / 1e3 / steps) if kernels else "not measured",
-        "device_idle_share": (1 - busy_us / 1e6 / wall) if kernels else "not measured",
-        "kernels_per_step": len(kernels) / steps,
-        **{f"{k[:-3]}_ms_per_step" if k.endswith("_ms") else f"{k}_per_step": v
-           for k, v in shares.items()},
-        "top_kernels": [{"name": name[:80], "calls": n, "device_ms": t / 1e3}
-                        for name, (n, t) in top],
-    }}))
+    print(json.dumps({"profile_serving": profile_serving(args.config, args.num_envs,
+                                                         args.steps, args.trace)}))
     return 0
 
 
