@@ -23,7 +23,11 @@ launches), and the main path runs on both routes in turns (previous, fused,
 fused, previous: env-steps/s and one traced dispatch each, kernels a step
 and the kernels only one route launches).  Every in-path capture below
 holds K1's four outputs (collision, nearest gap, reward, latched
-``in_collision``) bitwise.  Then it drives the port's paths
+``in_collision``) bitwise.  SA-CADRL's value-net kernel (``csrc/cadrl_value.cu``,
+which replaces no Pallas kernel) is held against its plain version at tile
+edges in both dtypes and bitwise at cadrl4's row counts, and timed at
+``cadrl4.serve16k``'s rows a step beside its operations bound and the plain
+version; the cadrl4 path must launch it once a step.  Then it drives the port's paths
 through ``AutoresetServer``, each with the kernel launch counts set to 0 just
 before and read just after:
 
@@ -167,7 +171,7 @@ E_LASER, A_LASER, L_LASER = 256, 20, 512
 LASER_STEPS, LASER_DISPATCHES = 64, 4
 E_DRL2_STEP = 64       # envs of drl2's whole compared step
 POLICY_STEPS, POLICY_DISPATCHES = 64, 3
-KERNEL_SOURCES = ("pairwise", "raymarch", "laser_fused")
+KERNEL_SOURCES = ("pairwise", "raymarch", "laser_fused", "cadrl_value")
 # timed iterations of each training path (after one warm-up), and the size of
 # the card-against-CPU training step
 TRAIN_ITERS = {"train_ga3c4": 3, "train_drl2": 3, "train_mlp2": 1}
@@ -969,6 +973,75 @@ def phase_networks():
            "drl_long_cnn": {"rows": B, "gflop": 2.0 * macs * B / 1e9, "ms": cnn_ms,
                             "bound_ms": 2.0 * macs * B / F32_FLOPS * 1e3}}
     print(json.dumps({"networks": out}), flush=True)
+
+
+# SA-CADRL's value-net kernel: the rows of a cadrl4.serve16k step
+# (E = 16384 envs x 4 agents x 47 candidates) and of the cadrl4 path's
+# (E = 4096), where it gives the plain version's bits (it sums in cuBLAS's
+# order); elsewhere float32 may differ by a few roundings
+VALUE_ROWS = (16384 * 4 * 47, 4096 * 4 * 47)
+VALUE_ATOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def phase_cadrl_value():
+    """Hold ``csrc/cadrl_value.cu`` against the plain version on the card
+    (float32 at tile edges, and bitwise at VALUE_ROWS; float64 at tile
+    edges), equal rows giving the same bits wherever they sit; time it and the plain
+    version (CUDA-graph replay) at VALUE_ROWS beside its operations bound,
+    102 500 a row at 67 TFLOP/s, and its bytes bound, 32 float32s a row."""
+    from gym_collision_avoidance_torch.models import cadrl
+    from gym_collision_avoidance_torch.ops import cadrl_value
+
+    worst = 0.0
+    # tiles are 128 rows in float32 and 32 in float64
+    cases = [(torch.float32, r) for r in (1, 127, 128, 129, 257, *VALUE_ROWS)]
+    cases += [(torch.float64, r) for r in (1, 31, 32, 33, 4096)]
+    rng = np.random.RandomState(11)
+    for dtype, rows in cases:
+        net = cadrl.load_params(dtype=dtype, device=DEVICE)
+        x = torch.as_tensor(rng.randn(rows, 31) * net.std_vec.cpu().double().numpy()
+                            + net.avg_vec.cpu().double().numpy(), dtype=dtype, device=DEVICE)
+        before = cadrl_value.LAUNCHES
+        got = cadrl.forward_raw(net, x)
+        torch.cuda.synchronize()
+        check(cadrl_value.LAUNCHES == before + 1, "cadrl_value: one launch")
+        want = cadrl.forward_raw_plain(net, x)
+        err = max_abs_err(got, want)
+        check(err <= VALUE_ATOL[dtype], f"cadrl_value {dtype} R={rows}: differs by {err}")
+        if dtype == torch.float32 and rows in VALUE_ROWS:
+            check(bitwise_equal(got, want), f"cadrl_value R={rows}: not the plain version's bits")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        if rows > 64:
+            x[::37] = x[5].clone()
+            got = cadrl.forward_raw(net, x)
+            check(bool((got[::37] == got[5]).all()), f"cadrl_value R={rows}: equal rows differ")
+        print(f"cadrl_value {str(dtype)[6:]} R={rows}: within {err:.3g} of the plain version",
+              flush=True)
+        del x, got, want
+    net = cadrl.load_params(device=DEVICE)
+    shapes = []
+    for rows in VALUE_ROWS:
+        x = torch.as_tensor(rng.randn(rows, 31), dtype=torch.float32, device=DEVICE)
+        ms = graph_ms(lambda: cadrl_value.value_net_cuda(net, x), inner=5)
+        plain_ms = graph_ms(lambda: cadrl.forward_raw_plain(net, x), inner=1)
+        t_ops = rows * 102_500 / F32_FLOPS * 1e3
+        t_bytes = rows * 32 * 4 / HBM_BYTES_PER_S * 1e3
+        shapes.append({"rows": rows, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "roofline_pct": 100.0 * max(t_ops, t_bytes) / ms})
+        del x
+        torch.cuda.empty_cache()
+    print(json.dumps({"kernel": "cadrl_value", "library_ms": None, "by_shape": shapes}),
+          flush=True)
+    main = shapes[0]
+    return {"name": "cadrl_value", "route": "cuda",
+            "source": "gym_collision_avoidance_torch/csrc/cadrl_value.cu",
+            "replaces": None, "entry": "forward_raw (cadrl4.serve16k's rows a step)",
+            "launches": None, "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "by_shape": shapes}
 
 
 # ---------------------------------------------------------------- laser path
@@ -3168,7 +3241,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
               file=sys.stderr)
         return 1
-    from gym_collision_avoidance_torch.ops import build, laser_fused, pairwise, raymarch
+    from gym_collision_avoidance_torch.ops import (build, cadrl_value, laser_fused, pairwise,
+                                                   raymarch)
 
     smi = nvidia_smi_line()
     print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3191,11 +3265,17 @@ def main():
     for name, label in (("main", "serving"), ("ga3c4", "ga3c4_serving"),
                         ("orca4", "orca4_serving")):
         by_path[name], _ = run(label, phase_serving, label, kernels, serving_path(name))
+    k4 = run("kernels_cadrl_value", phase_cadrl_value)
     for name in ("cadrl4", "drl2"):
+        cadrl_value.LAUNCHES = 0
         by_path[name], _ = run(f"{name}_serving", phase_serving, f"{name}_serving", kernels,
                                serving_path(name),
                                laser="raymarch" if name == "drl2" else None,
                                steps=POLICY_STEPS, dispatches=POLICY_DISPATCHES)
+        want = (POLICY_DISPATCHES + 1) * POLICY_STEPS if name == "cadrl4" else 0
+        check(cadrl_value.LAUNCHES == want,
+              f"{name}: the value-net kernel launched {cadrl_value.LAUNCHES} times, not {want}")
+        by_path[name] = dict(by_path[name], cadrl_value=cadrl_value.LAUNCHES)
     run("reward_ab", phase_reward_ab, pairwise)
     run("card_vs_cpu", phase_card_vs_cpu)
     run("policy_card_vs_cpu", phase_policy_card_vs_cpu)
@@ -3238,7 +3318,8 @@ def main():
                                (k3, "laser_fused", "laser_fast")):
         k["launches"] = by_path[main_path][name]
         k["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    k4["launches"] = by_path["cadrl4"]["cadrl_value"]
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

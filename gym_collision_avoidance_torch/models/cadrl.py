@@ -17,6 +17,12 @@ width and is not ported.  Standardisation follows the JAX serving step: with
 the weights closed over, XLA folds ``(x - avg) / std`` into
 ``(x - avg) * (1 / std)`` (compiled HLO), so the port multiplies by the
 reciprocal rounded to the weights' dtype.
+
+:func:`forward_raw` runs the plain PyTorch version,
+:func:`forward_raw_plain`, on a CPU tensor, and on a CUDA tensor one launch
+of the hand-written kernel ``csrc/cadrl_value.cu``
+(``ops/cadrl_value.py``), which reads the weights in its own layout, packed
+once and again only after a weight changes.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from torch import nn
 
 from gym_collision_avoidance_torch.core.device import resolve_device
+from gym_collision_avoidance_torch.ops import cadrl_value
 
 INPUT_DIM = 31
 HOST_BLOCK = 50
@@ -104,7 +111,20 @@ def load_params(path: str = "no_constr", dtype=torch.float32, device=None) -> CA
 def forward_raw(params: CADRLValueNet, x):
     """Raw value of ``[..., 31]`` unstandardised agent-centric states ->
     ``[...]`` (before the callers' [-0.25, 1] clip and gamma bound,
-    nn_navigation_value_multi.py:2052-2100).  One product per layer over all
+    nn_navigation_value_multi.py:2052-2100).
+
+    CPU tensors -> :func:`forward_raw_plain`; CUDA tensors -> one launch of
+    the kernel (``ops/cadrl_value.py:value_net_cuda``), which raises on a
+    non-contiguous ``x`` or one of another dtype than the net's."""
+    if x.device.type == "cpu":
+        return forward_raw_plain(params, x)
+    if x.device.type == "cuda":
+        return cadrl_value.value_net_cuda(params, x)
+    raise ValueError(f"no CADRL value net for device {x.device}")
+
+
+def forward_raw_plain(params: CADRLValueNet, x):
+    """:func:`forward_raw` in plain PyTorch: one product per layer over all
     leading axes."""
     xn = (x - params.avg_vec) * params.inv_std
     h = torch.relu(torch.matmul(xn, params.W0) + params.b0)

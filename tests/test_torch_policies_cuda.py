@@ -15,7 +15,13 @@ correctly rounded in float32 and float64.
 
 SA-CADRL in float32 on the card, TF32 off, on seeded 4-agent states: the
 candidate values within atol 1e-4 of the float64 CPU run and the action
-index equal for at least 99.9% of agents.  DRL-Long's float32 CNN on the
+index equal for at least 99.9% of agents.  Its value net on the card is one
+launch of ``csrc/cadrl_value.cu``: held against the plain version on the
+card in float32 and float64 at tile edges and at cadrl4's row counts, two
+equal rows give the same bits wherever they sit, a weight replaced or
+written in place changes what it computes as it does the plain version's,
+the wrapper raises on what the kernel does not take, and one cadrl4 step
+launches it once.  DRL-Long's float32 CNN on the
 card, cuDNN's TF32 off, within rtol 1e-5 / atol 1e-5 of the CPU on 8192
 seeded scans.  With TF32 on, how far each moves is printed, not held.
 """
@@ -27,8 +33,9 @@ import torch
 from gym_collision_avoidance_torch import EnvConfig
 from gym_collision_avoidance_torch.env import autoreset
 from gym_collision_avoidance_torch import init_state
+from gym_collision_avoidance_torch.harness import paths
 from gym_collision_avoidance_torch.models import cadrl, drl_long, ga3c_cadrl
-from gym_collision_avoidance_torch.ops import orca
+from gym_collision_avoidance_torch.ops import cadrl_value, orca
 from gym_collision_avoidance_torch.policies import cadrl as cadrl_policy
 from gym_collision_avoidance_torch.policies import registry, rvo
 from gym_collision_avoidance_torch.scenarios import random_cases
@@ -157,6 +164,118 @@ def test_cadrl_card_matches_cpu_float32(cuda_device):
           f"{float((got.cpu().double() - want).abs().max()):.3g}), "
           f"{int((tf32.argmax(-1).cpu() != want.argmax(-1)).sum())} with TF32 on (values within "
           f"{float((tf32.cpu().double() - want).abs().max()):.3g})")
+
+
+def _value_rows(net, seed, rows):
+    """Seeded ``[rows, 31]`` rows about the net's input statistics."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(rows, 31) * net.std_vec.cpu().numpy() + net.avg_vec.cpu().numpy()
+    return torch.as_tensor(x, dtype=net.dtype, device=net.W0.device)
+
+
+# The kernel sums each product in cuBLAS's order (ops/cadrl_value.py), so at
+# cadrl4's row counts it gives the plain version's bits; at other row counts
+# cuBLAS may order a product otherwise, and float32 values of order 1 then
+# differ by a few roundings, some 1e-7: 1e-5 leaves room and stays far below
+# the 1e-4 that the card-vs-CPU test holds.  Float64's roundings are some 1e-16.
+VALUE_ATOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+CADRL4_ROWS = (4096 * 4 * 47, 16384 * 4 * 47)
+
+
+# tiles are 128 rows in float32 and 32 in float64 (csrc/cadrl_value.cu)
+TILE_EDGES = [1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 257]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [*TILE_EDGES, *CADRL4_ROWS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cadrl_value_kernel_matches_plain(cuda_device, dtype, rows):
+    net = cadrl.load_params(dtype=dtype, device=cuda_device)
+    x = _value_rows(net, rows, rows)
+    before = cadrl_value.LAUNCHES
+    got = cadrl.forward_raw(net, x)
+    torch.cuda.synchronize()
+    assert cadrl_value.LAUNCHES == before + 1
+    want = cadrl.forward_raw_plain(net, x)
+    assert got.shape == (rows,) and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=VALUE_ATOL[dtype])
+    if dtype == torch.float32 and rows in CADRL4_ROWS:
+        assert torch.equal(got, want)
+    if rows > 10**6:
+        print(f"\nSA-CADRL value kernel {dtype} at {rows} rows on "
+              f"{torch.cuda.get_device_name(0)}: largest difference from the plain version "
+              f"{float((got - want).abs().max()):.3g}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cadrl_value_kernel_equal_rows_equal_bits(cuda_device, dtype):
+    """A row's value depends on the row alone: not on where it sits in a
+    tile, nor on how many rows there are."""
+    net = cadrl.load_params(dtype=dtype, device=cuda_device)
+    x = _value_rows(net, 5, 1000)
+    # float32 tiles are 128 rows, float64's 32: first, last and next rows of tiles
+    places = [0, 1, 3, 31, 32, 33, 63, 64, 95, 96, 127, 128, 129, 255, 256, 257, 500, 998, 999]
+    x[places] = x[7].clone()
+    got = cadrl.forward_raw(net, x)
+    alone = cadrl.forward_raw(net, x[7:8].clone())
+    shifted = cadrl.forward_raw(net, x[1:])     # rows not on 16 bytes: copied one by one
+    torch.cuda.synchronize()
+    assert torch.equal(got[places], got[7].expand(len(places)))
+    assert torch.equal(alone, got[7:8])
+    assert torch.equal(shifted, got[1:])
+
+
+@pytest.mark.cuda
+def test_cadrl_value_kernel_follows_changed_weights(cuda_device):
+    """The kernel reads a packed copy of the weights; a weight replaced
+    (``p.data = ...``, as the benchmark's bf16_weights control does) or
+    written in place (``copy_``) changes what it computes, as it does the
+    plain version's."""
+    net = cadrl.load_params(device=cuda_device)
+    other = cadrl.load_params("rotate_constr_right", device=cuda_device)
+    x = _value_rows(net, 8, CADRL4_ROWS[0])
+    before = cadrl.forward_raw(net, x)
+    for p in net.parameters():
+        p.data = p.data.to(torch.bfloat16).to(p.dtype)
+    rounded = cadrl.forward_raw(net, x)
+    assert not torch.equal(rounded, before)
+    assert torch.equal(rounded, cadrl.forward_raw_plain(net, x))
+    with torch.no_grad():
+        for name in (*cadrl.WEIGHT_NAMES, *cadrl.NORM_NAMES, "inv_std"):
+            getattr(net, name).copy_(getattr(other, name))
+    copied = cadrl.forward_raw(net, x)
+    assert torch.equal(copied, cadrl.forward_raw_plain(net, x))
+    assert torch.equal(copied, cadrl.forward_raw(other, x))
+
+
+@pytest.mark.cuda
+def test_cadrl_value_kernel_raises_on_what_it_does_not_take(cuda_device):
+    net = cadrl.load_params(device=cuda_device)
+    x = _value_rows(net, 6, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        cadrl.forward_raw(net, x.t().contiguous().t())
+    with pytest.raises(ValueError, match=r"\[\.\.\., 31\]"):
+        cadrl.forward_raw(net, x[:, :30].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        cadrl.forward_raw(net, x.double())
+    arrays = {k: v.cpu().numpy() for k, v in net.state_dict().items()}
+    arrays.update(W1=arrays["W1"][:, :100], b1=arrays["b1"][:100], W3=arrays["W3"][:75])
+    narrow = cadrl.CADRLValueNet(arrays).to(cuda_device)
+    with pytest.raises(ValueError, match="W1"):
+        cadrl.forward_raw(narrow, x)
+
+
+@pytest.mark.cuda
+def test_cadrl4_step_launches_the_value_kernel_once(cuda_device):
+    server = paths.serving_path("cadrl4", cuda_device).server(
+        num_envs=256, steps_per_dispatch=1, device=cuda_device)
+    torch.cuda.synchronize()
+    before = cadrl_value.LAUNCHES
+    server.dispatch()
+    torch.cuda.synchronize()
+    assert cadrl_value.LAUNCHES == before + 1
 
 
 @pytest.mark.cuda
