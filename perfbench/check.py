@@ -124,7 +124,7 @@ def judge_serving(config, pool, start, samples, steps, reads, device):
     module docstring, from the program's initial states ``start`` and its
     snapshotted dispatches, and the policy steps compared (``{"steps":
     n, "of": m}``) of those after the window."""
-    cfg = sim.Config.from_env(config["env"])
+    cfg = sim.Config.from_env(config["env"], config.get("world"))
     policy = reference.module(config["reference"]["policy"])
     weights = policy.load(str(ROOT / config["reference"]["weights"]), device)
     policy_id = np.full(config["num_agents"], config["policy_id"], np.int32)

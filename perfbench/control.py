@@ -2,11 +2,12 @@
 lower-precision control, on many seeds in one process.
 
     python3 perfbench/control.py --workload cadrl4.serve16k --seeds 11,12,13 \\
-        --seconds 16 --control tf32 --sound 1 --faults half,unchanged
+        --seconds 16 --control bf16_weights --sound 1 --faults half,unchanged
 
 For each seed it runs the cell as the benchmark does (``--sound 1``),
 with ``--control tf32`` again with TF32 products switched on (the program's
-own lower-precision path), and with each of ``--faults`` (``perfbench/
+own lower-precision path; ``bf16_weights`` rounds the net's weights to
+bfloat16 instead), and with each of ``--faults`` (``perfbench/
 faults.py``) planted in the program, and prints one JSON line a run with
 the compared numbers.  The benchmark's own runs never run this.
 """
@@ -30,7 +31,7 @@ def main(argv=None) -> int:
     parser.add_argument("--workload", required=True)
     parser.add_argument("--seeds", required=True, help="comma-separated seeds")
     parser.add_argument("--seconds", type=float, default=3.0)
-    parser.add_argument("--control", default="", help="tf32, or empty for none")
+    parser.add_argument("--control", default="", help="tf32, bf16_weights, or empty for none")
     parser.add_argument("--sound", type=int, default=1, help="also run the sound program")
     parser.add_argument("--faults", default="", help="comma-separated faults to plant")
     args = parser.parse_args(argv)

@@ -5,7 +5,9 @@ The benchmark's own runs plant none.
 Serving (``AutoresetServer.dispatch``): ``unchanged`` (the step returns its
 state unchanged), ``half`` (half of the envs left unstepped), ``altered_state``
 (every position moved by 1 cm where it is produced), ``altered_read`` (the
-client's mean reward shifted by 1e-3).  Training (``PPOTrainer``):
+client's mean reward shifted by 1e-3); on a laser configuration
+``altered_scan`` (every range of the scan history moved by one range
+sample, 0.1 m).  Training (``PPOTrainer``):
 ``unchanged`` (``train_step`` returns its carry and parameters unchanged),
 ``half_batch`` (each minibatch's loss over its first half alone, the mean
 taken over the rest), ``altered_reward`` (every rollout reward shifted by
@@ -19,6 +21,8 @@ import contextlib
 import torch
 
 SERVE = ("unchanged", "half", "altered_state", "altered_read")
+# faults of state that only a laser configuration has
+LASER = ("altered_scan",)
 TRAIN = ("unchanged", "half_batch", "altered_reward")
 
 
@@ -41,6 +45,9 @@ def _serve(fault):
             self._states = self._states.replace(pos=self._states.pos + 0.01)
         elif fault == "altered_read":
             out["mean_reward"] = out["mean_reward"] + 1e-3
+        elif fault == "altered_scan":
+            self._states = self._states.replace(
+                laserscan_history=self._states.laserscan_history + 0.1)
         else:
             raise ValueError(f"unknown serving fault {fault!r}")
         return out

@@ -1,8 +1,9 @@
 """The serving driver: one closed-loop client of the port's
 ``AutoresetServer``.
 
-Set-up builds the server on the cell's configuration and a pool drawn from
-the seed, and warms it up.  The window dispatches S steps of E envs and
+Set-up builds the server on the cell's configuration (with the sensors,
+observation keys and static map that its ``world`` names) and a pool drawn
+from the seed, and warms it up.  The window dispatches S steps of E envs and
 reads each dispatch's ``mean_reward`` and ``obs_checksum`` back before the
 next, for ``--seconds``; a few dispatches, drawn from the seed, are
 snapshotted on either side.  With ``--trace 1`` the profiler then covers a
@@ -41,6 +42,24 @@ def _program_params(config: dict, device) -> dict:
         module, attr = _resolve(spec["loader"])
         params[key] = getattr(module, attr)(**spec["args"], device=device)
     return params
+
+
+def _world(config: dict, cfg, device) -> dict:
+    """``AutoresetServer``'s sensor, observation and map keywords from the
+    configuration's ``world``: none where it names none, so that the server
+    takes its defaults.  The one static map is ``"empty"``: the env's map
+    size with no occupied cell, handed with its (empty) cell list, so that
+    the card takes the laser's sparse route."""
+    world = config.get("world", {})
+    kw = {k: tuple(world[k]) for k in ("sensors", "states_in_obs") if k in world}
+    if "static_map" in world:
+        if world["static_map"] != "empty":
+            raise ValueError(f"no static map {world['static_map']!r}: the benchmark builds "
+                             "the empty map only")
+        from gym_collision_avoidance_torch.harness.paths import map_inputs
+
+        kw["static_map"], kw["static_cells"] = map_inputs(cfg, device)
+    return kw
 
 
 def _snapshot(server):
@@ -111,8 +130,9 @@ def run(config, traffic, limits, seed, seconds, trace, device, t_start, control)
         for net in params.values():
             for p in net.parameters():
                 p.data = p.data.to(torch.bfloat16).to(p.dtype)
-    server = AutoresetServer(EnvConfig(**config["env"]), pool, policy_id, num_envs=E,
-                             steps_per_dispatch=S, params=params, device=device)
+    cfg = EnvConfig(**config["env"])
+    server = AutoresetServer(cfg, pool, policy_id, num_envs=E, steps_per_dispatch=S,
+                             params=params, device=device, **_world(config, cfg, device))
     start = _snapshot(server)
     for _ in range(int(traffic["warmup_dispatches"])):
         _read(server.dispatch(), reads)

@@ -1,8 +1,9 @@
 """Plain reference of the env step that the serving cells run: a frozen copy,
 in plain PyTorch on dicts of ``[E, A, ...]`` tensors, of the port's plain
-step for what those cells use (unicycle dynamics, no static map, the
-other-agents sensor, the default observation keys, an internal policy on
-every agent) and of the auto-reset pick.
+step for what those cells use (unicycle dynamics, the other-agents sensor,
+an internal policy on every agent; where a configuration's ``world`` names
+them, the laserscan sensor with its scan history, and the empty static map
+with its wall test) and of the auto-reset pick.
 
 Nothing here imports the program: the harness hands this module the
 program's states as ``{field: tensor}`` dicts and judges what comes back.
@@ -21,6 +22,14 @@ import torch
 _TWO_PI = 2.0 * math.pi
 NUM_PAST = 2
 UNICYCLE = 0
+SENSORS = ("other_agents_states", "laserscan")
+# LaserScanSensor.py:32-39: 60 range samples 0.1 m apart, beams over +-pi/2
+LASER_RESOLUTION = 0.1
+LASER_MAX_RANGE = 6.0
+LASER_SAMPLES = len(np.arange(0.0, LASER_MAX_RANGE, LASER_RESOLUTION))
+# cells of the agent-stamped map built at once: the laser runs in blocks of
+# envs so that its map fits beside the judged states
+MAP_BLOCK_CELLS = 2**27
 # policy ids of the upstream registry
 LEARNING, LEARNING_GA3C = 3, 4
 
@@ -46,18 +55,51 @@ class Config:
     agent_sorting_method: str = "closest_first"
     done_mode: str = "evaluate"
     dtype: str = "float32"
+    use_static_map: bool = False
+    map_x_width: float = 16.0
+    map_y_width: float = 16.0
+    map_grid_cell_size: float = 0.1
+    laserscan_length: int = 512
+    laserscan_num_past: int = 3
+    # the sensors of the configuration's world, each on every agent
+    sensors: tuple = ("other_agents_states",)
 
     @staticmethod
-    def from_env(env: dict) -> "Config":
-        names = {f.name for f in dataclasses.fields(Config)}
-        unknown = set(env) - names
+    def from_env(env: dict, world: dict | None = None) -> "Config":
+        """``env`` overrides the defaults by name; ``world`` (a configuration's
+        ``sensors``, ``states_in_obs`` and ``static_map``) names the sensors
+        and the map.  Anything the reference does not model raises."""
+        names = {f.name for f in dataclasses.fields(Config)} - {"sensors"}
+        world = dict(world or {})
+        unknown = sorted(set(env) - names) + sorted(
+            set(world) - {"sensors", "states_in_obs", "static_map"})
         if unknown:
-            raise ValueError(f"the reference does not model {sorted(unknown)}")
-        return Config(**env)
+            raise ValueError(f"the reference does not model {unknown}")
+        if world.get("static_map", "empty") != "empty":
+            raise ValueError(f"the reference models the empty static map only, not "
+                             f"{world['static_map']!r}")
+        sensors = tuple(world.get("sensors", ("other_agents_states",)))
+        if not all(isinstance(n, str) and n in SENSORS for n in sensors):
+            raise ValueError(f"the reference models the sensors {SENSORS} on every agent, "
+                             f"not {sensors}")
+        cfg = Config(**env, sensors=sensors)
+        if "laserscan" in sensors and not cfg.use_static_map:
+            raise ValueError("the laserscan sensor needs use_static_map")
+        return cfg
 
     @property
     def torch_dtype(self):
         return {"float32": torch.float32, "float64": torch.float64}[self.dtype]
+
+    @property
+    def map_shape(self):
+        return (int(self.map_y_width / self.map_grid_cell_size),
+                int(self.map_x_width / self.map_grid_cell_size))
+
+    def static_cells(self, device):
+        """``[S, 2]`` (row, column) of the static map's occupied cells: none,
+        on the empty map, the only one modelled."""
+        return torch.zeros((0, 2), dtype=torch.int64, device=device)
 
 
 # ---------------------------------------------------------------- maths
@@ -129,7 +171,9 @@ def init_states(cfg: Config, case: np.ndarray, policy_id, device, rng=(0, 0)) ->
         ran_out_of_time=z(E, A, t=torch.bool), is_done=z(E, A, t=torch.bool),
         other_agent_states=z(E, A, 7), sensed_others=z(E, A, K, 7),
         num_other_agents_observed=z(E, A, t=torch.int32),
-        laserscan_history=z(E, A, 0, 0), laserscan_count=z(E, A, t=torch.int32),
+        laserscan_history=(z(E, A, cfg.laserscan_num_past, cfg.laserscan_length)
+                           if cfg.use_static_map else z(E, A, 0, 0)),
+        laserscan_count=z(E, A, t=torch.int32),
         policy_id=torch.as_tensor(np.asarray(policy_id), dtype=torch.int32,
                                   device=device).expand(E, A).contiguous(),
         dynamics_id=z(E, A, t=torch.int32), valid=torch.ones((E, A), dtype=torch.bool,
@@ -214,13 +258,18 @@ def rewards(s: dict, cfg: Config):
     nearest = torch.amin(torch.where(pair, dist - comb, torch.full_like(dist, math.inf)), dim=-1)
     collision = torch.any(pair & (dist <= comb), dim=-1)
 
+    # the wall test (collision_avoidance_env.py:494-506) on map configurations
+    wall = wall_hits(s, cfg) if cfg.use_static_map else torch.zeros_like(collision)
+
     r = torch.full(valid.shape, cfg.reward_time_step, dtype=nearest.dtype, device=pos.device)
     r = torch.where(s["is_at_goal"] & ~s["was_at_goal_already"],
                     torch.full_like(r, cfg.reward_at_goal), r)
     eligible = ~s["is_at_goal"] & ~s["was_in_collision_already"]
     hit = eligible & collision
+    hit_wall = eligible & ~collision & wall
     r = torch.where(hit, torch.full_like(r, cfg.reward_collision_with_agent), r)
-    no_hit = eligible & ~collision
+    r = torch.where(hit_wall, torch.full_like(r, cfg.reward_collision_with_wall), r)
+    no_hit = eligible & ~collision & ~wall
     close = no_hit & (nearest <= cfg.getting_close_range)
     r = torch.where(close, cfg.reward_getting_close - nearest / 2.0, r)
     wiggly = no_hit & (torch.abs(s["past_actions"][..., 0, 1]) > cfg.wiggly_behavior_threshold)
@@ -229,7 +278,116 @@ def rewards(s: dict, cfg: Config):
                 cfg.reward_collision_with_wall, cfg.reward_wiggly_behavior]
     r = torch.clamp(r, min(possible), max(possible))
     r = torch.where(valid, r, torch.zeros_like(r))
-    return r, s["in_collision"] | hit
+    return r, s["in_collision"] | hit | hit_wall
+
+
+# ---------------------------------------------------------------- map, laser
+
+
+def reciprocal(value: float, dtype) -> float:
+    """``1 / value`` rounded to ``dtype``: the port multiplies by it where
+    upstream divides by a map constant (XLA's rewrite of the division)."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    return float(np_dtype(1.0) / np_dtype(value))
+
+
+def world_to_map(x, y, cfg: Config):
+    """The cell ``(i, j)`` of world coordinates and whether it lies on the
+    map (Map.py:26-44: row floor(H/2 - y/cell), column floor(W/2 + x/cell))."""
+    H, W = cfg.map_shape
+    cell = cfg.map_grid_cell_size
+    inv = reciprocal(cell, x.dtype)
+    i = torch.floor((cfg.map_y_width / 2.0) / cell - y * inv).to(torch.int32)
+    j = torch.floor((cfg.map_x_width / 2.0) / cell + x * inv).to(torch.int32)
+    return i, j, (i >= 0) & (j >= 0) & (i < H) & (j < W)
+
+
+def radius_cells_sq(radius, cfg: Config):
+    r = radius * reciprocal(cfg.map_grid_cell_size, radius.dtype)
+    return r * r
+
+
+def in_disc(i, j, gi, gj, rsq):
+    """Cell ``(i, j)`` lies in the disc of squared radius ``rsq`` (in cells)
+    about cell ``(gi, gj)`` (Map.py:52-64: the integer square sum against
+    the float squared radius)."""
+    di, dj = i - gi, j - gj
+    return (dj * dj + di * di).to(rsq.dtype) < rsq
+
+
+def wall_hits(s: dict, cfg: Config):
+    """``[E, A]``: a static occupied cell lies in the disc of a valid agent
+    whose centre is on the map (collision_avoidance_env.py:494-506)."""
+    gi, gj, on_map = world_to_map(s["pos"][..., 0], s["pos"][..., 1], cfg)
+    rsq = radius_cells_sq(s["radius"], cfg)
+    cells = cfg.static_cells(gi.device)
+    hit = in_disc(cells[:, 0], cells[:, 1], gi[..., None], gj[..., None], rsq[..., None])
+    return hit.any(dim=-1) & on_map & s["valid"]
+
+
+def agent_map(s: dict, cfg: Config):
+    """``[E, H, W]`` bool: the static map with the discs of the valid agents
+    whose centre is on the map stamped in (Map.add_agents_to_map,
+    Map.py:46-64)."""
+    pos = s["pos"]
+    E, A = pos.shape[:2]
+    H, W = cfg.map_shape
+    dev = pos.device
+    grid = torch.zeros((E, H, W), dtype=torch.bool, device=dev)
+    cells = cfg.static_cells(dev)
+    grid[:, cells[:, 0], cells[:, 1]] = True
+    gi, gj, on_map = world_to_map(pos[..., 0], pos[..., 1], cfg)
+    rsq = radius_cells_sq(s["radius"], cfg)
+    gi, gj, rsq, on = (x[:, :, None, None] for x in (gi, gj, rsq, on_map & s["valid"]))
+    rows = torch.arange(H, dtype=torch.int32, device=dev)[:, None]
+    cols = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    for a in range(A):
+        grid |= in_disc(rows, cols, gi[:, a], gj[:, a], rsq[:, a]) & on[:, a]
+    return grid
+
+
+def laserscan(s: dict, cfg: Config):
+    """``[E, A, L]`` ranges of every agent's scan (LaserScanSensor.py:49-101):
+    the beams at ``linspace(-pi/2, pi/2, L)`` about the heading march the
+    agent-stamped map in range samples ``k * 0.1``; a sample hits on an
+    occupied cell of the map that is not in the agent's own disc.  With k1,
+    k2 the first two hits, the range is sample ``k2 - 1`` (the last at which
+    exactly one hit was counted), sample R - 1 with one hit, and the
+    maximum range with none.  In blocks of envs."""
+    pos = s["pos"]
+    E = pos.shape[0]
+    H, W = cfg.map_shape
+    block = max(1, MAP_BLOCK_CELLS // (H * W))
+    return torch.cat([_scan_block({k: s[k][e:e + block] for k in ("pos", "radius", "valid",
+                                                                  "heading")}, cfg)
+                      for e in range(0, E, block)])
+
+
+def _scan_block(s: dict, cfg: Config):
+    pos = s["pos"]
+    E = pos.shape[0]
+    H, W = cfg.map_shape
+    dt_, dev = pos.dtype, pos.device
+    flat = agent_map(s, cfg).reshape(E, H * W)
+    samples = torch.arange(LASER_SAMPLES, device=dev).to(dt_) * LASER_RESOLUTION
+    table = torch.tensor(np.linspace(-math.pi / 2, math.pi / 2, cfg.laserscan_length),
+                         device=dev).to(dt_)
+    angle = table + s["heading"][..., None]
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    gi, gj, on_map = world_to_map(pos[..., 0], pos[..., 1], cfg)
+    rsq = radius_cells_sq(s["radius"], cfg)
+    count = torch.zeros(cos.shape, dtype=torch.int32, device=dev)
+    last = torch.full(cos.shape, -1, dtype=torch.long, device=dev)
+    for k in range(LASER_SAMPLES):
+        i, j, inside = world_to_map(pos[..., 0, None] + samples[k] * cos,
+                                    pos[..., 1, None] + samples[k] * sin, cfg)
+        i, j = i.clamp(0, H - 1), j.clamp(0, W - 1)
+        occupied = torch.gather(flat, 1, (i * W + j).reshape(E, -1).long()).reshape(i.shape)
+        own = in_disc(i, j, gi[..., None], gj[..., None], rsq[..., None]) & on_map[..., None]
+        count = count + (occupied & ~own & inside).to(torch.int32)
+        last = torch.where(count == 1, k, last)
+    return torch.where(last >= 0, samples[last.clamp(min=0)],
+                       torch.full_like(cos, LASER_MAX_RANGE))
 
 
 def lex_rank(keys, idx, count_mask):
@@ -285,17 +443,30 @@ def other_agents(s: dict, cfg: Config):
 
 
 def sense(s: dict, cfg: Config):
-    """The sensor pass and the observation (collision_avoidance_env.py:555-575)."""
-    rows, closest, counts = other_agents(s, cfg)
-    s = dict(s, other_agent_states=closest, sensed_others=rows,
-             num_other_agents_observed=counts)
+    """The sensor pass and the observation (collision_avoidance_env.py:555-575).
+    The laser's scans enter a history of the last ``laserscan_num_past``,
+    newest first, which the first scan fills (LaserScanSensor.py:84-88)."""
+    s = dict(s)
     dt_ = s["pos"].dtype
-    obs = {"is_learning": is_learning(s).to(dt_)[..., None],
-           "num_other_agents": counts.to(dt_)[..., None],
-           "dist_to_goal": s["dist_to_goal"][..., None],
-           "heading_ego_frame": s["heading_ego_frame"][..., None],
-           "pref_speed": s["pref_speed"][..., None], "radius": s["radius"][..., None],
-           "other_agents_states": rows}
+    obs = {}
+    if "laserscan" in cfg.sensors:
+        ranges = laserscan(s, cfg)[:, :, None, :]
+        hist = s["laserscan_history"]
+        rolled = torch.cat([ranges, hist[:, :, :-1, :]], dim=2)
+        first = (s["laserscan_count"] == 0)[..., None, None]
+        s["laserscan_history"] = torch.where(first, ranges.expand_as(rolled), rolled)
+        s["laserscan_count"] = s["laserscan_count"] + 1
+        obs["laserscan"] = s["laserscan_history"]
+    if "other_agents_states" in cfg.sensors:
+        rows, closest, counts = other_agents(s, cfg)
+        s.update(other_agent_states=closest, sensed_others=rows,
+                 num_other_agents_observed=counts)
+    obs.update({"is_learning": is_learning(s).to(dt_)[..., None],
+                "num_other_agents": s["num_other_agents_observed"].to(dt_)[..., None],
+                "dist_to_goal": s["dist_to_goal"][..., None],
+                "heading_ego_frame": s["heading_ego_frame"][..., None],
+                "pref_speed": s["pref_speed"][..., None], "radius": s["radius"][..., None],
+                "other_agents_states": s["sensed_others"]})
     return s, obs
 
 

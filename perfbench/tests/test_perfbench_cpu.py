@@ -68,6 +68,29 @@ def train_cell(monkeypatch):
     monkeypatch.setattr(run, "load_json", with_train)
 
 
+# The laser test configuration (no cell of BENCHMARK.json) as a cell at
+# ga3c4.serve's traffic and limits.
+LASER = "laser_ga3c4.serve"
+LASER_CONFIG = ROOT / "perfbench" / "tests" / "laser_ga3c4.json"
+
+
+@pytest.fixture
+def laser_cell(monkeypatch):
+    """``run.load_cell`` that also knows :data:`LASER`."""
+    load_cell = run.load_cell
+
+    def with_laser(workload):
+        if workload != LASER:
+            return load_cell(workload)
+        loaded = load_cell("ga3c4.serve")
+        cell = dict(loaded["cell"], name=LASER, config="laser_ga3c4")
+        manifest = dict(loaded["manifest"],
+                        workloads=loaded["manifest"]["workloads"] + [cell])
+        return dict(loaded, manifest=manifest, cell=cell, config=run.load_json(LASER_CONFIG))
+
+    monkeypatch.setattr(run, "load_cell", with_laser)
+
+
 def tiny_run(workload, seed=2**31 + 77, trace=False, control="", overrides=TINY):
     return run.run_cell(workload, seed, 0.3, trace, device="cpu", t_start=time.perf_counter(),
                         control=control, overrides=overrides)
@@ -131,10 +154,12 @@ def test_reference_imports_nothing_of_the_program():
                                                   "gym_collision_avoidance_torch"), (path, name)
 
 
-@pytest.mark.parametrize("workload", CELLS)
-def test_reference_follows_the_programs_cpu_step(workload):
-    """Ten steps of the program's auto-reset step on the CPU, the reference
-    following each from the program's state: equal states and counters."""
+@pytest.mark.parametrize("workload", CELLS + (LASER,))
+def test_reference_follows_the_programs_cpu_step(laser_cell, workload):
+    """Ten steps of the program's auto-reset step on the CPU, in the world
+    that a run gives it, the reference following each from the program's
+    state: equal states and counters (the laser's scan history and count
+    among them)."""
     from gym_collision_avoidance_torch.config import EnvConfig
     from gym_collision_avoidance_torch.env import autoreset
     from perfbench.kinds import serve
@@ -145,12 +170,13 @@ def test_reference_follows_the_programs_cpu_step(workload):
     pool = scenarios.scenario_pool(8, A, seed=3)
     policy_id = np.full(A, config["policy_id"], np.int32)
     params = serve._program_params(config, "cpu")
-    step = autoreset.make_autoreset_step(EnvConfig(**config["env"]), pool, policy_id,
-                                         (config["policy_id"],), params=params, device="cpu")
-    state = autoreset.state_from_case(EnvConfig(**config["env"]), pool[np.arange(6) % 8],
-                                      policy_id, device="cpu")
+    env = EnvConfig(**config["env"])
+    step = autoreset.make_autoreset_step(env, pool, policy_id, (config["policy_id"],),
+                                         params=params, device="cpu",
+                                         **serve._world(config, env, "cpu"))
+    state = autoreset.state_from_case(env, pool[np.arange(6) % 8], policy_id, device="cpu")
     counter = torch.arange(6, dtype=torch.int32)
-    cfg = sim.Config.from_env(config["env"])
+    cfg = sim.Config.from_env(config["env"], config.get("world"))
     policy = reference.module(config["reference"]["policy"])
     weights = policy.load(str(ROOT / config["reference"]["weights"]), "cpu")
     fresh, fresh_obs = sim.fresh_pool(cfg, pool, policy_id, "cpu")
@@ -176,6 +202,73 @@ def test_a_run_is_correct_and_judged(workload):
     steps = TINY["check"]["after_dispatches"] * run.load_cell(workload)["traffic"][
         "steps_per_dispatch"]
     assert line["policy_steps_compared"] == {"steps": steps, "of": steps}
+
+
+def test_a_laser_run_is_correct_and_judged(laser_cell):
+    line = tiny_run(LASER)
+    assert line["correct"], line["check"]
+    assert line["check"]["diverged_share"]["value"] == 0.0
+    assert line["check"]["float_err"]["value"] <= 1e-6
+
+
+@pytest.mark.parametrize("fault", faults.LASER)
+def test_a_broken_scan_is_not_correct(laser_cell, fault):
+    with faults.planted("serve", fault):
+        line = tiny_run(LASER)
+    assert not line["correct"], (fault, line["check"])
+
+
+class _Built(Exception):
+    """Raised in place of building the server, once its arguments are read."""
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in run.load_json(
+    ROOT / "BENCHMARK.json")["workloads"] if run.load_cell(w["name"])["traffic"]["kind"]
+    == "serve"])
+def test_a_configuration_naming_no_world_keeps_the_servers_defaults(monkeypatch, workload):
+    """A configuration without ``world`` hands ``AutoresetServer`` what it
+    was handed before worlds existed: the default sensors and observation
+    keys, and no map."""
+    import inspect
+
+    from gym_collision_avoidance_torch.harness import serving
+    from gym_collision_avoidance_torch.obs import spec
+
+    assert "world" not in run.load_cell(workload)["config"]
+    init = serving.AutoresetServer.__init__
+    got = {}
+
+    def record(*args, **kwargs):
+        bound = inspect.signature(init).bind(*args, **kwargs)
+        bound.apply_defaults()
+        got.update(bound.arguments)
+        raise _Built
+
+    monkeypatch.setattr(serving.AutoresetServer, "__init__", record)
+    with pytest.raises(_Built):
+        tiny_run(workload)
+    assert got["sensors"] == ("other_agents_states",)
+    assert got["states_in_obs"] == spec.DEFAULT_STATES_IN_OBS
+    assert got["static_map"] is None and got["static_cells"] is None
+
+
+@pytest.mark.parametrize("key, value", [("laserscan_num_candidate_discs", 9),
+                                        ("laserscan_entry_window", 12),
+                                        ("laserscan_beam_slots", 4), ("collision_dist", 0.1)])
+def test_the_reference_refuses_what_it_does_not_model(key, value):
+    config = run.load_json(LASER_CONFIG)
+    with pytest.raises(ValueError, match="does not model"):
+        sim.Config.from_env(dict(config["env"], **{key: value}), config["world"])
+
+
+@pytest.mark.parametrize("env, world", [
+    ({}, {"static_map": "002"}), ({}, {"sensors": ["occupancy_grid"]}),
+    ({}, {"sensors": [["laserscan", [0]]]}), ({}, {"map": "empty"}),
+    ({"use_static_map": False}, {})])
+def test_the_reference_refuses_a_world_it_does_not_model(env, world):
+    config = run.load_json(LASER_CONFIG)
+    with pytest.raises(ValueError):
+        sim.Config.from_env(dict(config["env"], **env), dict(config["world"], **world))
 
 
 def test_a_bypassed_policy_output_is_reported(monkeypatch):
