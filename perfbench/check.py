@@ -11,11 +11,19 @@ and judges what the program made of it:
   that differs, or a float off by more than ``DIVERGED`` relative), over all
   compared dispatches and the initial states;
 * ``flip_margin``: over the envs that diverged, the largest of each env's
-  smallest decision margin along the dispatch (the gap, in the reference's
-  scores, between an agent's best action and its next best distinct one).
-  An env that parted because its two best actions were a rounding apart has
-  a margin of rounding size; one that parted for any other reason has a
-  margin of the policy's own scale, or none (infinite);
+  smallest margin along the dispatch.  An env that parted by rounding has a
+  margin of rounding size; one that parted for any other reason has a
+  margin of the policy's or the world's own scale, or none (infinite).
+  For a policy that takes an argmax (GA3C's, SA-CADRL's), the margin is
+  the gap, in the reference's scores, between an agent's best action and
+  its next best distinct one.  For a policy with no argmax, whose reference
+  module defines ``margins`` (DRL-Long's), the action is continuous and an
+  env parts only where the step turns a rounding into another branch: the
+  margin is the distance, in metres (a heading's in radians), by which the
+  nearest comparison of the step that sets a flag or a scan's range missed
+  its threshold (:func:`perfbench.reference.sim.step_margins`), taken on
+  each step's states before and after it (before the reset pick), for the
+  envs that parted;
 * ``float_err``: the largest error of any float the program made, over
   the envs that did not diverge: its state fields (relative), each step's
   ``mean_reward`` and ``obs_checksum`` as the client read them (beyond what
@@ -119,6 +127,19 @@ def _policy_err(policy, prog_calls, ref_outs, keep):
     return worst, len(ref_outs)
 
 
+def _parted_margins(step_margins, trail, div, cfg):
+    """``[E]``: the smallest of the policy module's step margins over the
+    dispatch's steps (``trail``, each step's states before and after it),
+    for the envs of ``div``; infinite elsewhere."""
+    idx = div.nonzero()[:, 0]
+    out = torch.full(div.shape, math.inf, dtype=torch.float64, device=div.device)
+    for before, after in trail:
+        m = step_margins({k: v[idx] for k, v in before.items()},
+                         {k: v[idx] for k, v in after.items()}, cfg)
+        out[idx] = torch.minimum(out[idx], m)
+    return out
+
+
 def judge_serving(config, pool, start, samples, steps, reads, device):
     """``(readings, compared)``: the readings of :mod:`perfbench.check`'s
     module docstring, from the program's initial states ``start`` and its
@@ -141,15 +162,21 @@ def judge_serving(config, pool, start, samples, steps, reads, device):
     reward_err = checksum_err = policy_err = 0.0
     compared = {"steps": 0, "of": 0}
 
+    step_margins = getattr(policy, "margins", None)
     for sample in samples:
         s = {k: v.to(device) for k, v in sample["before"][0].items()}
         c = sample["before"][1].to(device)
         env_margin = torch.full((E,), math.inf, dtype=torch.float64, device=device)
-        mean_reward, checksum, dmax, outs = [], [], [], []
+        mean_reward, checksum, dmax, outs, trail = [], [], [], [], []
         for _ in range(steps):
             act, scores, out, ranked = policy.decide(weights, s, cfg)
-            env_margin = torch.minimum(env_margin, margins(scores, ranked, s["is_done"]))
+            if step_margins is None:
+                env_margin = torch.minimum(env_margin, margins(scores, ranked, s["is_done"]))
+            before = s
             s, obs, r, game_over = sim.env_step(s, act, cfg)
+            if step_margins is not None:
+                # the margins of the envs that part are taken once the dispatch is judged
+                trail.append(tuple({k: x[k] for k in sim.MARGIN_FIELDS} for x in (before, s)))
             s, obs, c = sim.reset_where_done(s, obs, c, game_over, fresh, fresh_obs)
             mean_reward.append(float(r.double().sum()) / (E * r.shape[1]))
             checksum.append(obs["dist_to_goal"][..., 0].double().sum(dim=0).cpu().numpy())
@@ -160,6 +187,8 @@ def judge_serving(config, pool, start, samples, steps, reads, device):
         n_div += nd
         n_env += E
         if nd:
+            if step_margins is not None:
+                env_margin = _parted_margins(step_margins, trail, div, cfg)
             flip = max(flip, float(env_margin[div].max()))
         if bool((~div).any()):
             state_err = max(state_err, float(err[~div].max()))

@@ -7,11 +7,12 @@ state unchanged), ``half`` (half of the envs left unstepped), ``altered_state``
 (every position moved by 1 cm where it is produced), ``altered_read`` (the
 client's mean reward shifted by 1e-3); on a laser configuration
 ``altered_scan`` (every range of the scan history moved by one range
-sample, 0.1 m).  Training (``PPOTrainer``):
-``unchanged`` (``train_step`` returns its carry and parameters unchanged),
-``half_batch`` (each minibatch's loss over its first half alone, the mean
-taken over the rest), ``altered_reward`` (every rollout reward shifted by
-0.01 where it is produced).
+sample, 0.1 m) and ``one_scan_sample`` (one range of the first env's first
+agent's newest scan moved by one range sample).  Training
+(``PPOTrainer``): ``unchanged`` (``train_step`` returns its carry and
+parameters unchanged), ``half_batch`` (each minibatch's loss over its first
+half alone, the mean taken over the rest), ``altered_reward`` (every rollout
+reward shifted by 0.01 where it is produced).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 SERVE = ("unchanged", "half", "altered_state", "altered_read")
 # faults of state that only a laser configuration has
-LASER = ("altered_scan",)
+LASER = ("altered_scan", "one_scan_sample")
 TRAIN = ("unchanged", "half_batch", "altered_reward")
 
 
@@ -48,6 +49,10 @@ def _serve(fault):
         elif fault == "altered_scan":
             self._states = self._states.replace(
                 laserscan_history=self._states.laserscan_history + 0.1)
+        elif fault == "one_scan_sample":
+            hist = self._states.laserscan_history.clone()
+            hist[0, 0, 0, hist.shape[-1] // 2] += 0.1
+            self._states = self._states.replace(laserscan_history=hist)
         else:
             raise ValueError(f"unknown serving fault {fault!r}")
         return out

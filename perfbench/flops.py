@@ -40,3 +40,13 @@ def k1_flops(num_envs: int, num_agents: int) -> float:
     """K1's arithmetic: per ordered pair a difference (2), a squared norm
     (3), a root (1), the combined radius and the gap (2)."""
     return 8.0 * num_envs * num_agents * num_agents
+
+
+def k2_bytes(num_envs: int, num_agents: int, laserscan_length: int) -> int:
+    """The bytes of any laser scan of ``[E, A]`` agents, each input read once
+    and each output written once: each agent's pose (``pos`` [2] and
+    ``heading``), ``radius`` (float32) and ``valid`` flag in; its ``[L]``
+    float32 ranges out.  The work of the scan whatever implements it: a
+    design's own reads (K2's source bands and map) are left out."""
+    per_agent_in = 3 * 4 + 4 + 1
+    return num_envs * num_agents * (per_agent_in + 4 * laserscan_length)

@@ -3,7 +3,9 @@ in plain PyTorch on dicts of ``[E, A, ...]`` tensors, of the port's plain
 step for what those cells use (unicycle dynamics, the other-agents sensor,
 an internal policy on every agent; where a configuration's ``world`` names
 them, the laserscan sensor with its scan history, and the empty static map
-with its wall test) and of the auto-reset pick.
+with its wall test) and of the auto-reset pick; and the distances by which
+a step's comparisons missed their thresholds (:func:`step_margins`), which
+judge a policy with no argmax.
 
 Nothing here imports the program: the harness hands this module the
 program's states as ``{field: tensor}`` dicts and judges what comes back.
@@ -291,14 +293,21 @@ def reciprocal(value: float, dtype) -> float:
     return float(np_dtype(1.0) / np_dtype(value))
 
 
-def world_to_map(x, y, cfg: Config):
-    """The cell ``(i, j)`` of world coordinates and whether it lies on the
-    map (Map.py:26-44: row floor(H/2 - y/cell), column floor(W/2 + x/cell))."""
-    H, W = cfg.map_shape
+def map_coords(x, y, cfg: Config):
+    """The row and column coordinates, in cells, of world coordinates: the
+    cell is their floor (Map.py:26-44: H/2 - y/cell, W/2 + x/cell)."""
     cell = cfg.map_grid_cell_size
     inv = reciprocal(cell, x.dtype)
-    i = torch.floor((cfg.map_y_width / 2.0) / cell - y * inv).to(torch.int32)
-    j = torch.floor((cfg.map_x_width / 2.0) / cell + x * inv).to(torch.int32)
+    return (cfg.map_y_width / 2.0) / cell - y * inv, (cfg.map_x_width / 2.0) / cell + x * inv
+
+
+def world_to_map(x, y, cfg: Config):
+    """The cell ``(i, j)`` of world coordinates and whether it lies on the
+    map."""
+    H, W = cfg.map_shape
+    u, v = map_coords(x, y, cfg)
+    i = torch.floor(u).to(torch.int32)
+    j = torch.floor(v).to(torch.int32)
     return i, j, (i >= 0) & (j >= 0) & (i < H) & (j < W)
 
 
@@ -363,17 +372,24 @@ def laserscan(s: dict, cfg: Config):
                       for e in range(0, E, block)])
 
 
-def _scan_block(s: dict, cfg: Config):
-    pos = s["pos"]
-    E = pos.shape[0]
-    H, W = cfg.map_shape
-    dt_, dev = pos.dtype, pos.device
-    flat = agent_map(s, cfg).reshape(E, H * W)
+def _beams(s: dict, cfg: Config):
+    """``(samples [R], cos [E, A, L], sin [E, A, L])``: the range samples and
+    the directions of every agent's beams."""
+    dt_, dev = s["pos"].dtype, s["pos"].device
     samples = torch.arange(LASER_SAMPLES, device=dev).to(dt_) * LASER_RESOLUTION
     table = torch.tensor(np.linspace(-math.pi / 2, math.pi / 2, cfg.laserscan_length),
                          device=dev).to(dt_)
     angle = table + s["heading"][..., None]
-    cos, sin = torch.cos(angle), torch.sin(angle)
+    return samples, torch.cos(angle), torch.sin(angle)
+
+
+def _scan_block(s: dict, cfg: Config):
+    pos = s["pos"]
+    E = pos.shape[0]
+    H, W = cfg.map_shape
+    dev = pos.device
+    flat = agent_map(s, cfg).reshape(E, H * W)
+    samples, cos, sin = _beams(s, cfg)
     gi, gj, on_map = world_to_map(pos[..., 0], pos[..., 1], cfg)
     rsq = radius_cells_sq(s["radius"], cfg)
     count = torch.zeros(cos.shape, dtype=torch.int32, device=dev)
@@ -388,6 +404,166 @@ def _scan_block(s: dict, cfg: Config):
         last = torch.where(count == 1, k, last)
     return torch.where(last >= 0, samples[last.clamp(min=0)],
                        torch.full_like(cos, LASER_MAX_RANGE))
+
+
+# ---------------------------------------------------------------- margins
+
+# the eight neighbours of a cell, (row, column) offsets: bit b of a margin
+# code says whether neighbour b's hit differs from the cell's; bit 8 is the
+# cell's own hit
+NEIGHBOURS = tuple((di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1) if di or dj)
+HIT_BIT = len(NEIGHBOURS)
+# the fields that step_margins reads of the states before and after a step
+MARGIN_FIELDS = ("pos", "goal", "heading", "delta_heading", "heading_ego_frame", "turning_dir",
+                 "radius", "valid", "is_at_goal", "ran_out_of_time", "in_collision",
+                 "was_in_collision_already", "is_done")
+# _turning_dir's test of a turning direction near zero, and the decay that
+# clamps a turning direction under 0.1 to exactly zero
+TURN_NEAR_ZERO = 1e-5
+TURN_KINK = 0.1
+
+
+def _edge_distance(u):
+    """The distance, in cells, of cell coordinates ``u`` to their cell's
+    nearer edge, from the coordinate as the step floors it."""
+    f = u.double() - torch.floor(u).double()
+    return torch.minimum(f, 1.0 - f)
+
+
+def scan_margins(s: dict, cfg: Config):
+    """``[E, A]`` metres: for every valid agent, the smallest distance by
+    which a sample of its scan missed a neighbouring cell whose hit (occupied
+    on the agent-stamped map, outside the agent's own disc, on the map)
+    differs from that of the sample's cell, over each beam's samples up to
+    its second hit; a distance through a corner is the Euclidean one.  No
+    such sample: infinite.  In blocks of envs."""
+    E, A = s["pos"].shape[:2]
+    H, W = cfg.map_shape
+    block = max(1, MAP_BLOCK_CELLS // (A * H * W))
+    out = torch.cat([_scan_margin_block({k: s[k][e:e + block] for k in ("pos", "radius", "valid",
+                                                                       "heading")}, cfg)
+                     for e in range(0, E, block)])
+    return torch.where(s["valid"], out * cfg.map_grid_cell_size, torch.full_like(out, math.inf))
+
+
+def _scan_margin_block(s: dict, cfg: Config):
+    pos = s["pos"]
+    E, A = pos.shape[:2]
+    H, W = cfg.map_shape
+    dev = pos.device
+    grid = agent_map(s, cfg)
+    gi, gj, on_map = world_to_map(pos[..., 0], pos[..., 1], cfg)
+    rsq = radius_cells_sq(s["radius"], cfg)
+    rows = torch.arange(H, dtype=torch.int32, device=dev)[:, None]
+    cols = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    # each agent's hits, with two rings of cells off the map around them
+    hit = torch.zeros((E, A, H + 4, W + 4), dtype=torch.bool, device=dev)
+    for a in range(A):
+        own = in_disc(rows, cols, gi[:, a, None, None], gj[:, a, None, None],
+                      rsq[:, a, None, None]) & on_map[:, a, None, None]
+        hit[:, a, 2:-2, 2:-2] = grid & ~own
+    # codes of the map's cells and the first ring around them
+    centre = hit[:, :, 1:-1, 1:-1]
+    code = centre.to(torch.int16) << HIT_BIT
+    for b, (di, dj) in enumerate(NEIGHBOURS):
+        near = hit[:, :, 1 + di:H + 3 + di, 1 + dj:W + 3 + dj]
+        code |= (near != centre).to(torch.int16) << b
+    del hit, centre
+    flat = code.reshape(E, -1)
+    agent_base = (torch.arange(A, device=dev) * (H + 2) * (W + 2))[None, :, None]
+
+    samples, cos, sin = _beams(s, cfg)
+    count = torch.zeros(cos.shape, dtype=torch.int32, device=dev)
+    margin = torch.full(cos.shape, math.inf, dtype=torch.float64, device=dev)
+    for k in range(LASER_SAMPLES):
+        u, v = map_coords(pos[..., 0, None] + samples[k] * cos,
+                          pos[..., 1, None] + samples[k] * sin, cfg)
+        fu, fv = torch.floor(u), torch.floor(v)
+        i, j = fu.to(torch.int64), fv.to(torch.int64)
+        coded = (i >= -1) & (i <= H) & (j >= -1) & (j <= W)
+        idx = agent_base + (i + 1).clamp(0, H + 1) * (W + 2) + (j + 1).clamp(0, W + 1)
+        c = torch.gather(flat, 1, idx.reshape(E, -1)).reshape(i.shape)
+        c = torch.where(coded, c, torch.zeros_like(c))
+        du, dv = u.double() - fu.double(), v.double() - fv.double()
+        along = {-1: (du, dv), 1: (1.0 - du, 1.0 - dv)}
+        m = torch.full_like(margin, math.inf)
+        for b, (di, dj) in enumerate(NEIGHBOURS):
+            d2 = sum(along[o][axis] ** 2 for axis, o in enumerate((di, dj)) if o)
+            m = torch.where(((c >> b) & 1).bool(), torch.minimum(m, torch.sqrt(d2)), m)
+        margin = torch.where(count < 2, torch.minimum(margin, m), margin)
+        count = count + ((c >> HIT_BIT) & 1).to(torch.int32)
+    return margin.amin(dim=-1)
+
+
+def step_margins(before: dict, after: dict, cfg: Config):
+    """``[E]``: each env's smallest distance, over its valid agents, by which
+    a comparison of the step from ``before`` to ``after`` that sets a flag,
+    a state's branch or a scan's range missed its threshold; each a distance
+    in metres, or in radians for a heading (a metre and a radian count
+    alike: at 1-8 m and about pi their float32 rounding is of one size).
+
+    Over the agents that the step moved (valid, not done before it):
+    ``dist_to_goal`` against ``near_goal_threshold`` (``is_at_goal``) and
+    against 1e-8 (the goal direction's test); the heading, its ego-frame
+    angle and its change against +-pi (``wrap``); the heading against 0 (the
+    sign that ``_turning_dir`` takes of the command).  Over the agents that
+    the next step moves (valid, not done after it): ``|turning_dir|``
+    against 1e-5 (``_turning_dir``'s near-zero test), except that a turning
+    direction of exactly zero comes from the decay's clamp, flat there, and
+    reaches the test only where its value before the step moves past 0.1 +
+    1e-5: that is its distance.  Over pairs of valid agents whose first can
+    still collide (not at the goal, no collision before): the distance
+    against the summed radii (``in_collision``).  Over every valid agent (stamped and sensed, done or not): its centre against
+    the edges of its own cell (its stamped disc, its own-disc test, its
+    place on the map and the wall test), and where the laser senses, its
+    scan's samples (:func:`scan_margins`).  Left out, since no rounding of a
+    position or heading turns them: ``time_remaining <= 0``, the step
+    counters, and the dones and the reset pick, which follow the flags
+    above; and the getting-close reward (``nearest`` against
+    ``getting_close_range``), which moves a read but no state.  The
+    other-agents sensor's rounding and sort are not modelled: a world that
+    senses them raises."""
+    if "other_agents_states" in cfg.sensors:
+        raise ValueError("step margins model a world without the other-agents sensor")
+    f64 = torch.float64
+    valid = after["valid"]
+    moved = valid & ~(before["is_at_goal"] | before["ran_out_of_time"] | before["in_collision"])
+    inf = torch.full(valid.shape, math.inf, dtype=f64, device=valid.device)
+
+    def over(mask, m):
+        return torch.where(mask, m.to(f64), inf)
+
+    pos = after["pos"].double()
+    gd = pos - after["goal"].double()
+    dist = torch.sqrt(gd[..., 0] ** 2 + gd[..., 1] ** 2)
+    heading = after["heading"].double()
+    turn = after["turning_dir"].double()
+    u, v = map_coords(after["pos"][..., 0], after["pos"][..., 1], cfg)
+    parts = [
+        over(moved, (dist - cfg.near_goal_threshold).abs()),
+        over(moved, (dist - 1e-8).abs()),
+        over(moved, math.pi - heading.abs()),
+        over(moved, math.pi - after["heading_ego_frame"].double().abs()),
+        over(moved, math.pi - after["delta_heading"].double().abs()),
+        over(moved, heading.abs()),
+        over(valid & ~after["is_done"],
+             torch.where(turn == 0.0, TURN_KINK + TURN_NEAR_ZERO
+                         - before["turning_dir"].double().abs(), turn.abs() - TURN_NEAR_ZERO)
+             .abs()),
+        over(valid, torch.minimum(_edge_distance(u), _edge_distance(v))
+             * cfg.map_grid_cell_size),
+    ]
+    A = valid.shape[-1]
+    rel = pos[:, None, :, :] - pos[:, :, None, :]
+    gap = (torch.sqrt(rel[..., 0] ** 2 + rel[..., 1] ** 2)
+           - (after["radius"][:, :, None] + after["radius"][:, None, :]).double()).abs()
+    can_hit = valid & ~after["is_at_goal"] & ~after["was_in_collision_already"]
+    pair = (can_hit[:, :, None] & valid[:, None, :]
+            & ~torch.eye(A, dtype=torch.bool, device=valid.device))
+    parts.append(torch.where(pair, gap, torch.full_like(gap, math.inf)).amin(dim=-1))
+    if "laserscan" in cfg.sensors:
+        parts.append(scan_margins(after, cfg))
+    return torch.stack(parts).amin(dim=0).amin(dim=-1)
 
 
 def lex_rank(keys, idx, count_mask):

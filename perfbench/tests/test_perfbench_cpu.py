@@ -22,7 +22,9 @@ sys.path.insert(0, str(ROOT))
 from perfbench import check, faults, flops, reference, run, scenarios  # noqa: E402
 from perfbench.reference import sim  # noqa: E402
 
-CELLS = ("ga3c4.serve", "cadrl4.serve16k")
+CELLS = ("ga3c4.serve", "cadrl4.serve16k", "drl_long4.serve16k")
+# the laser cell whose policy takes no argmax, judged by its step margins
+DRL = "drl_long4.serve16k"
 TINY = {"num_envs": 8, "warmup_dispatches": 1, "trace_dispatches": 3,
         "check": {"window_samples": 2, "window_first": 2, "after_dispatches": 1}}
 
@@ -115,6 +117,13 @@ def test_flop_and_byte_counts():
     assert flops.policy_flops_per_step(cadrl, 4096) == 2.0 * 770048 * 51250
     assert flops.k1_bytes(4096, 4) == 16384 * 31
     assert flops.k1_flops(4096, 4) == 8.0 * 4096 * 16
+    # conv1 3 x 5 x 32 x 255, conv2 32 x 3 x 32 x 128, 4096 x 256, 260 x 128, 128 x 2; x2
+    drl = {"num_agents": 4, "reference": {"policy": "drl_long"}}
+    assert flops.policy_flops_per_step(drl, 1) == 4 * 3195456.0
+    assert 3195456 == 2 * (3 * 5 * 32 * 255 + 32 * 3 * 32 * 128 + 4096 * 256 + 260 * 128 + 128 * 2)
+    # pose (12 B), radius (4 B) and valid (1 B) in, 512 float32 ranges out, an agent
+    assert flops.k2_bytes(16384, 4, 512) == 65536 * (17 + 2048)
+    assert abs(flops.k2_bytes(16384, 4, 512) / 3.35e12 - 0.0404e-3) < 0.0001e-3
 
 
 def test_every_cell_resolves_to_its_files(train_cell):
@@ -144,7 +153,9 @@ def test_every_cell_resolves_to_its_files(train_cell):
 
 
 def test_reference_imports_nothing_of_the_program():
-    for path in (ROOT / "perfbench" / "reference").glob("*.py"):
+    paths = sorted((ROOT / "perfbench" / "reference").glob("*.py"))
+    assert {"sim.py", "ga3c.py", "cadrl.py", "ppo.py", "drl_long.py"} <= {p.name for p in paths}
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
@@ -211,30 +222,91 @@ def test_a_laser_run_is_correct_and_judged(laser_cell):
     assert line["check"]["float_err"]["value"] <= 1e-6
 
 
+@pytest.mark.parametrize("workload", (LASER, DRL))
 @pytest.mark.parametrize("fault", faults.LASER)
-def test_a_broken_scan_is_not_correct(laser_cell, fault):
+def test_a_broken_scan_is_not_correct(laser_cell, workload, fault):
+    """Every range moved by a sample, or one range of one env's scan: in the
+    DRL-Long cell at this size that one env's own margin, 1.5e-5 m, lies
+    under the 2e-5 limit, so it fails on the share of parted envs."""
     with faults.planted("serve", fault):
-        line = tiny_run(LASER)
+        line = tiny_run(workload)
     assert not line["correct"], (fault, line["check"])
+
+
+def test_an_env_parted_far_from_every_branch_fails_on_flip_margin():
+    """A dispatch of the reference itself, in envs whose agents face away
+    from each other (no beam hits) and head for goals 5.7 m off: one range
+    of one env's scan altered after it parts that env, whose every
+    comparison is far from its threshold, so ``flip_margin`` fails."""
+    config = run.load_json(ROOT / "perfbench" / "configs" / "drl_long4.json")
+    cfg = sim.Config.from_env(config["env"], config["world"])
+    policy = reference.module("drl_long")
+    w = policy.load(str(ROOT / config["reference"]["weights"]), "cpu")
+    corners = np.array([[3.03, 2.96], [-2.94, 3.07], [-3.05, -2.93], [2.92, -3.06]])
+    case = np.concatenate([corners, corners * 7.0 / 3.0, np.full((4, 1), 1.0),
+                           np.full((4, 1), 0.3)], axis=-1)
+    pool = np.stack([case, case[::-1]]).astype(np.float32)
+    policy_id = np.full(4, config["policy_id"], np.int32)
+    start = (sim.init_states(cfg, pool, policy_id, "cpu"), torch.arange(2, dtype=torch.int32))
+    fresh, fresh_obs = sim.fresh_pool(cfg, pool, policy_id, "cpu")
+    s, c = dict(fresh), start[1].clone()
+    for _ in range(8):
+        act = policy.decide(w, s, cfg)[0]
+        s, obs, _, game_over = sim.env_step(s, act, cfg)
+        s, obs, c = sim.reset_where_done(s, obs, c, game_over, fresh, fresh_obs)
+    assert float(sim.laserscan(s, cfg).min()) == sim.LASER_MAX_RANGE
+    limits = run.load_json(ROOT / "perfbench" / "limits" / f"{DRL}.json")
+    altered = s["laserscan_history"].clone()
+    altered[0, 0, 0, 256] += 0.1
+    for history, parted in ((s["laserscan_history"], False), (altered, True)):
+        sample = {"before": (dict(fresh), start[1].clone()), "read": {},
+                  "after": (dict(s, laserscan_history=history), c)}
+        readings, _ = check.judge_serving(config, pool, start, [sample], 8, (), "cpu")
+        assert (readings["diverged_share"] > 0) == parted, readings
+        assert (readings["flip_margin"] > limits["flip_margin"]) == parted, readings
+
+
+def _two_agents(x0):
+    """States of one env: agent 0 at ``(x0, 0.05)`` facing +x, agent 1 (radius
+    0.25 m, centre cell (79, 87): its disc covers columns 85-89 of row 79)
+    at ``(0.75, 0.05)``, on the 16 m map of 0.1 m cells, three beams."""
+    config = run.load_json(ROOT / "perfbench" / "configs" / "drl_long4.json")
+    cfg = sim.Config.from_env(dict(config["env"], laserscan_length=3), config["world"])
+    case = np.array([[[x0, 0.05, 3.0, 0.05, 1.0, 0.2], [0.75, 0.05, -3.0, 0.05, 1.0, 0.25]]],
+                    np.float32)
+    return sim.init_states(cfg, case, np.array([9, 9], np.int32), "cpu"), cfg
+
+
+def test_a_scan_sample_on_a_cell_edge_has_a_margin_of_zero():
+    """Agent 0's middle beam samples x0 + k * 0.1: at x0 = 0 sample 5 lies on
+    column 85's edge, the first cell of agent 1's disc, so a rounding there
+    decides the range; at x0 = 0.02 it lies 0.2 cells inside."""
+    s, cfg = _two_agents(0.0)
+    assert float(sim.scan_margins(s, cfg)[0, 0]) == 0.0
+    s, cfg = _two_agents(0.02)
+    assert abs(float(sim.scan_margins(s, cfg)[0, 0]) - 0.02) < 1e-5
+    before = dict(s, is_done=torch.zeros_like(s["is_done"]))
+    assert float(sim.step_margins(before, s, cfg)[0]) <= 0.02 + 1e-5
 
 
 class _Built(Exception):
     """Raised in place of building the server, once its arguments are read."""
 
 
-@pytest.mark.parametrize("workload", [w["name"] for w in run.load_json(
-    ROOT / "BENCHMARK.json")["workloads"] if run.load_cell(w["name"])["traffic"]["kind"]
-    == "serve"])
-def test_a_configuration_naming_no_world_keeps_the_servers_defaults(monkeypatch, workload):
-    """A configuration without ``world`` hands ``AutoresetServer`` what it
-    was handed before worlds existed: the default sensors and observation
-    keys, and no map."""
+def _serve_cells(world: bool):
+    """The serving cells of ``BENCHMARK.json`` whose configuration names a
+    ``world``, or names none."""
+    return [w["name"] for w in run.load_json(ROOT / "BENCHMARK.json")["workloads"]
+            if run.load_cell(w["name"])["traffic"]["kind"] == "serve"
+            and ("world" in run.load_cell(w["name"])["config"]) == world]
+
+
+def _server_arguments(monkeypatch, workload) -> dict:
+    """The arguments a run hands ``AutoresetServer``, which is not built."""
     import inspect
 
     from gym_collision_avoidance_torch.harness import serving
-    from gym_collision_avoidance_torch.obs import spec
 
-    assert "world" not in run.load_cell(workload)["config"]
     init = serving.AutoresetServer.__init__
     got = {}
 
@@ -247,9 +319,36 @@ def test_a_configuration_naming_no_world_keeps_the_servers_defaults(monkeypatch,
     monkeypatch.setattr(serving.AutoresetServer, "__init__", record)
     with pytest.raises(_Built):
         tiny_run(workload)
+    return got
+
+
+@pytest.mark.parametrize("workload", _serve_cells(world=False))
+def test_a_configuration_naming_no_world_keeps_the_servers_defaults(monkeypatch, workload):
+    """A configuration without ``world`` hands ``AutoresetServer`` what it
+    was handed before worlds existed: the default sensors and observation
+    keys, and no map."""
+    from gym_collision_avoidance_torch.obs import spec
+
+    got = _server_arguments(monkeypatch, workload)
     assert got["sensors"] == ("other_agents_states",)
     assert got["states_in_obs"] == spec.DEFAULT_STATES_IN_OBS
     assert got["static_map"] is None and got["static_cells"] is None
+
+
+@pytest.mark.parametrize("workload", _serve_cells(world=True))
+def test_a_configuration_naming_a_world_hands_it_to_the_server(monkeypatch, workload):
+    """A configuration with ``world`` hands ``AutoresetServer`` its sensors
+    and observation keys, the empty map at the env's size and an empty list
+    of occupied cells."""
+    world = run.load_cell(workload)["config"]["world"]
+    got = _server_arguments(monkeypatch, workload)
+    assert got["sensors"] == tuple(world["sensors"])
+    assert got["states_in_obs"] == tuple(world["states_in_obs"])
+    cfg = got["cfg"]
+    H = int(round(cfg.map_y_width / cfg.map_grid_cell_size))
+    W = int(round(cfg.map_x_width / cfg.map_grid_cell_size))
+    assert tuple(got["static_map"].shape) == (H, W) and not bool(got["static_map"].any())
+    assert got["static_cells"].shape[0] == 0
 
 
 @pytest.mark.parametrize("key, value", [("laserscan_num_candidate_discs", 9),
