@@ -27,9 +27,15 @@ holds K1's four outputs (collision, nearest gap, reward, latched
 which replaces no Pallas kernel) is held against its plain version at tile
 edges in both dtypes and bitwise at cadrl4's row counts, and timed at
 ``cadrl4.serve16k``'s rows a step beside its operations bound and the plain
-version; the cadrl4 path must launch it once a step.  Then it drives the port's paths
-through ``AutoresetServer``, each with the kernel launch counts set to 0 just
-before and read just after:
+version; the cadrl4 path must launch it once a step.  DRL-Long's
+convolution kernel (``csrc/drl_long_conv.cu``, which replaces no Pallas
+kernel either) is held against its plain version (cuDNN's convolutions, bias
+adds and ReLUs) at ragged row counts and scan lengths in both dtypes,
+bitwise in float32 at 512 beams, and timed at ``drl_long4.serve16k``'s rows
+a step beside its operations bound; the drl2 and eval_drl_long paths must
+launch it once a step.  Then it drives the port's paths through
+``AutoresetServer``, each with the kernel launch counts set to 0 just before
+and read just after:
 
 * the main path: the 4-agent NonCoop auto-reset serving loop that
   ``bench.py`` times, at E = 16384 envs (kernel K1);
@@ -171,7 +177,7 @@ E_LASER, A_LASER, L_LASER = 256, 20, 512
 LASER_STEPS, LASER_DISPATCHES = 64, 4
 E_DRL2_STEP = 64       # envs of drl2's whole compared step
 POLICY_STEPS, POLICY_DISPATCHES = 64, 3
-KERNEL_SOURCES = ("pairwise", "raymarch", "laser_fused", "cadrl_value")
+KERNEL_SOURCES = ("pairwise", "raymarch", "laser_fused", "cadrl_value", "drl_long_conv")
 # timed iterations of each training path (after one warm-up), and the size of
 # the card-against-CPU training step
 TRAIN_ITERS = {"train_ga3c4": 3, "train_drl2": 3, "train_mlp2": 1}
@@ -1138,6 +1144,85 @@ def k2_bound(args, out, band):
             "warp_screens_per_beam": warp_screens / out.numel(),
             "lane_screens_per_beam": lane_screens / out.numel(),
             "band_samples_per_beam": samples / out.numel()}
+
+
+# DRL-Long's convolution kernel: a drl_long4.serve16k step's rows (E = 16384
+# envs x 4 agents) at 512 beams, where it gives cuDNN's bits in float32 (it
+# sums in that kernel's order); elsewhere float32 may differ by a few roundings
+CONV_ROWS, CONV_L = 16384 * 4, 512
+CONV_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def phase_drl_long_conv():
+    """Hold ``csrc/drl_long_conv.cu`` against the plain version (the net's
+    ``nn.Conv1d`` + ReLU chain, cuDNN) on the card, float32 and float64, at
+    ragged row counts and scan lengths, the first and last output positions
+    (conv2's zero padding) apart, bitwise in float32 at CONV_L; time it and
+    the plain version (CUDA-graph replays) at ``[CONV_ROWS, 3, CONV_L]``
+    beside its operations bound, 1 031 232 a row at 67 TFLOP/s, and its
+    bytes bound, the scans in and the ``[B, 32, 128]`` output out."""
+    from gym_collision_avoidance_torch.models import drl_long
+    from gym_collision_avoidance_torch.ops import drl_long_conv as conv
+
+    rng = np.random.RandomState(23)
+    worst = 0.0
+    cases = [(torch.float32, B, L) for B in (1, 7, 8195, CONV_ROWS) for L in (512, 515)]
+    cases += [(torch.float32, 5, L) for L in (3, 5, 37, 64, 129, 260)]
+    cases += [(torch.float64, B, L) for B in (1, 7, 8195) for L in (512, 37)]
+    nets = {}
+    for dtype, B, L in cases:
+        net = nets.get((dtype, L))
+        if net is None:
+            net = nets[(dtype, L)] = drl_long.init_params(L, seed=L, dtype=dtype, device=DEVICE)
+            with torch.no_grad():
+                net.conv1.bias.uniform_(0.05, 0.3)    # relu(b1) > 0 where the pad must read 0
+        x = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, 3, L)), dtype=dtype, device=DEVICE)
+        before = conv.LAUNCHES
+        got = conv.drl_long_conv_cuda(net, x)
+        torch.cuda.synchronize()
+        check(conv.LAUNCHES == before + 1, "drl_long_conv: one launch")
+        want = conv.drl_long_conv_plain(net, x)
+        check(got.shape == want.shape == (B, 32, conv.out_len(L)),
+              f"drl_long_conv B={B} L={L}: shape {tuple(got.shape)}")
+        err = max_abs_err(got, want)
+        ends = max(max_abs_err(got[..., 0], want[..., 0]),
+                   max_abs_err(got[..., -1], want[..., -1]))
+        check(err <= CONV_TOL[dtype], f"drl_long_conv {dtype} B={B} L={L}: differs by {err}")
+        if dtype == torch.float32 and L == CONV_L:
+            check(bitwise_equal(got, want), f"drl_long_conv B={B}: not the plain version's bits")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        print(f"drl_long_conv {str(dtype)[6:]} B={B} L={L}: within {err:.3g} of the plain "
+              f"version ({ends:.3g} at positions 0 and L2 - 1)", flush=True)
+        del x, got, want
+    nets.clear()
+    torch.cuda.empty_cache()
+    net = drl_long.load_params(device=DEVICE)
+    x = torch.as_tensor(rng.uniform(-0.5, 0.5, (CONV_ROWS, 3, CONV_L)), dtype=torch.float32,
+                        device=DEVICE)
+    ms = graph_ms(lambda: conv.drl_long_conv_cuda(net, x), inner=5)
+    plain_ms = graph_ms(lambda: conv.drl_long_conv_plain(net, x), inner=1)
+    L2 = conv.out_len(CONV_L)
+    L1 = (CONV_L - 3) // 2 + 1
+    ops_row = 2 * (32 * L1 * 3 * 5 + 32 * L2 * 32 * 3)
+    t_ops = CONV_ROWS * ops_row / F32_FLOPS * 1e3
+    t_bytes = CONV_ROWS * (3 * CONV_L + 32 * L2) * 4 / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    line = {"rows": CONV_ROWS, "L": CONV_L, "ops_per_row": ops_row, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "roofline_pct": 100.0 * bound / ms, "max_abs_err": worst}
+    print(json.dumps({"kernel": "drl_long_conv", "device": nvidia_smi_line(), **line}),
+          flush=True)
+    del x
+    torch.cuda.empty_cache()
+    # the plain version is cuDNN's convolutions with their bias adds and
+    # ReLUs: the library chain the port no longer calls on this path
+    return {"name": "drl_long_conv", "route": "cuda",
+            "source": "gym_collision_avoidance_torch/csrc/drl_long_conv.cu",
+            "replaces": None, "entry": "DRLLongNet.trunk (drl_long4.serve16k's rows a step)",
+            "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": line["bound_by"], "library_ms": plain_ms}
 
 
 def phase_k2():
@@ -3241,8 +3326,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
               file=sys.stderr)
         return 1
-    from gym_collision_avoidance_torch.ops import (build, cadrl_value, laser_fused, pairwise,
-                                                   raymarch)
+    from gym_collision_avoidance_torch.ops import (build, cadrl_value, drl_long_conv,
+                                                   laser_fused, pairwise, raymarch)
 
     smi = nvidia_smi_line()
     print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3266,16 +3351,20 @@ def main():
                         ("orca4", "orca4_serving")):
         by_path[name], _ = run(label, phase_serving, label, kernels, serving_path(name))
     k4 = run("kernels_cadrl_value", phase_cadrl_value)
+    k5 = run("kernels_drl_long_conv", phase_drl_long_conv)
+    k5["launch_floor_ms"] = k1["launch_floor_ms"]
     for name in ("cadrl4", "drl2"):
-        cadrl_value.LAUNCHES = 0
+        cadrl_value.LAUNCHES = drl_long_conv.LAUNCHES = 0
         by_path[name], _ = run(f"{name}_serving", phase_serving, f"{name}_serving", kernels,
                                serving_path(name),
                                laser="raymarch" if name == "drl2" else None,
                                steps=POLICY_STEPS, dispatches=POLICY_DISPATCHES)
-        want = (POLICY_DISPATCHES + 1) * POLICY_STEPS if name == "cadrl4" else 0
-        check(cadrl_value.LAUNCHES == want,
-              f"{name}: the value-net kernel launched {cadrl_value.LAUNCHES} times, not {want}")
-        by_path[name] = dict(by_path[name], cadrl_value=cadrl_value.LAUNCHES)
+        steps = (POLICY_DISPATCHES + 1) * POLICY_STEPS
+        want = {"cadrl_value": steps if name == "cadrl4" else 0,
+                "drl_long_conv": steps if name == "drl2" else 0}
+        got = {"cadrl_value": cadrl_value.LAUNCHES, "drl_long_conv": drl_long_conv.LAUNCHES}
+        check(got == want, f"{name}: the policy kernels launched {got}, not {want}")
+        by_path[name] = dict(by_path[name], **got)
     run("reward_ab", phase_reward_ab, pairwise)
     run("card_vs_cpu", phase_card_vs_cpu)
     run("policy_card_vs_cpu", phase_policy_card_vs_cpu)
@@ -3308,7 +3397,13 @@ def main():
     by_path.update(run("sharded_resume", phase_sharded_resume, ranks))
     by_path.update(run("scaling", phase_scaling, ranks, kernels))
     by_path.update(run("strict_parity", phase_strict_parity, kernels))
+    drl_long_conv.LAUNCHES = 0
     by_path.update(run("eval_drl_long", phase_eval_drl_long, kernels))
+    check(drl_long_conv.LAUNCHES == by_path["eval_drl_long"]["pairwise"],
+          f"eval_drl_long: the convolution kernel launched {drl_long_conv.LAUNCHES} times, "
+          f"not once a step")
+    by_path["eval_drl_long"] = dict(by_path["eval_drl_long"],
+                                    drl_long_conv=drl_long_conv.LAUNCHES)
     by_path.update(run("eval_trained_net", phase_eval_trained_net, kernels,
                        trained["train_ga3c4"]))
     by_path.update(run("reinforce", phase_reinforce, kernels))
@@ -3319,7 +3414,10 @@ def main():
         k["launches"] = by_path[main_path][name]
         k["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
     k4["launches"] = by_path["cadrl4"]["cadrl_value"]
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    k5["launches"] = by_path["drl2"]["drl_long_conv"]
+    k5["launches_by_path"] = {path: counts["drl_long_conv"] for path, counts in by_path.items()
+                              if "drl_long_conv" in counts}
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,9 @@ from scratch (its ``drl_long_2agent_rvo_tpu.npz``, copied byte for byte into
 :class:`DRLLongNet` is built from the JAX package's parameter layout (dense
 kernels ``[in, out]``, which ``nn.Linear`` holds transposed), so a
 checkpoint, a seeded init and the JAX package's parameter dict all load the
-same way.  On the card ``core.device.resolve_device`` turns cuDNN's TF32
-off, so the convolutions run in float32.
+same way.  On the card ``core.device.resolve_device`` turns TF32 off, so the
+products, and cuDNN's convolutions where autograd takes them, run in
+float32; the convolution kernel ignores TF32.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from torch import nn
 
 from gym_collision_avoidance_torch.core import maths
 from gym_collision_avoidance_torch.core.device import resolve_device
+from gym_collision_avoidance_torch.ops import drl_long_conv
 
 FRAMES = 3
 
@@ -89,10 +91,17 @@ class DRLLongNet(nn.Module):
 
     def trunk(self, scan_stack, goal, speed):
         """``[B, 128]`` features of ``[B, 3, L]`` scans, ``[B, 2]`` goals and
-        speeds, cast to the net's dtype."""
+        speeds, cast to the net's dtype.  The two convolutions with their
+        biases and ReLUs are one launch of ``csrc/drl_long_conv.cu`` on a CUDA
+        tensor when no gradient is asked for (``ops/drl_long_conv.py``), and
+        the ``nn.Conv1d`` layers otherwise: on the CPU, and for the PPO
+        trainer, whose net requires gradients."""
         dtype = self.dtype
-        h = torch.relu(self.conv1(scan_stack.to(dtype)))
-        h = torch.relu(self.conv2(h))
+        x = scan_stack.to(dtype)
+        if x.is_cuda and not drl_long_conv.needs_grad(self, x):
+            h = drl_long_conv.drl_long_conv_cuda(self, x.contiguous())
+        else:
+            h = drl_long_conv.drl_long_conv_plain(self, x)
         h = torch.relu(self.fc1(h.reshape(h.shape[0], -1)))
         return torch.relu(self.fc2(torch.cat([h, goal.to(dtype), speed.to(dtype)], dim=-1)))
 

@@ -1,12 +1,12 @@
 """The hand-written kernels (K1 ``pairwise``, K2 ``raymarch``, K3
-``laser_fused``, SA-CADRL's value net ``cadrl_value``) with their plain
-versions, and ORCA.  Each kernel module's
-``LAUNCHES`` counts its launches on the card (never its plain version's
-calls on the CPU)."""
+``laser_fused``, SA-CADRL's value net ``cadrl_value``, DRL-Long's
+convolutions ``drl_long_conv``) with their plain versions, and ORCA.  Each
+kernel module's ``LAUNCHES`` counts its launches on the card (never its
+plain version's calls on the CPU)."""
 
 import importlib
 
-KERNEL_MODULES = ("pairwise", "raymarch", "laser_fused", "cadrl_value")
+KERNEL_MODULES = ("pairwise", "raymarch", "laser_fused", "cadrl_value", "drl_long_conv")
 
 
 def launch_counts() -> dict:

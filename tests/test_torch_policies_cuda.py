@@ -22,9 +22,20 @@ equal rows give the same bits wherever they sit, a weight replaced or
 written in place changes what it computes as it does the plain version's,
 the wrapper raises on what the kernel does not take, and one cadrl4 step
 launches it once.  DRL-Long's float32 CNN on the
-card, cuDNN's TF32 off, within rtol 1e-5 / atol 1e-5 of the CPU on 8192
-seeded scans.  With TF32 on, how far each moves is printed, not held.
+card, TF32 off, within rtol 1e-5 / atol 1e-5 of the CPU on 8192
+seeded scans.  With TF32 on, how far each moves is printed, not held.  Its
+two convolutions are one launch of ``csrc/drl_long_conv.cu``: held against
+the plain version (cuDNN) in float32 and float64 at ragged row counts, at
+512 beams and a ragged length, the first and last output positions (conv2's
+zero padding) apart, and bitwise in float32 at 512 beams; the wrapper
+raises on what the kernel does not take; a ``forward`` launches it once,
+and once a step on a server configured as the benchmark's ``drl_long4``; a
+net that requires gradients launches nothing and trains through cuDNN.
 """
+
+import json
+from pathlib import Path
+
 
 import numpy as np
 import pytest
@@ -34,8 +45,9 @@ from gym_collision_avoidance_torch import EnvConfig
 from gym_collision_avoidance_torch.env import autoreset
 from gym_collision_avoidance_torch import init_state
 from gym_collision_avoidance_torch.harness import paths
+from gym_collision_avoidance_torch.harness.serving import AutoresetServer
 from gym_collision_avoidance_torch.models import cadrl, drl_long, ga3c_cadrl
-from gym_collision_avoidance_torch.ops import cadrl_value, orca
+from gym_collision_avoidance_torch.ops import cadrl_value, drl_long_conv, orca
 from gym_collision_avoidance_torch.policies import cadrl as cadrl_policy
 from gym_collision_avoidance_torch.policies import registry, rvo
 from gym_collision_avoidance_torch.scenarios import random_cases
@@ -298,3 +310,106 @@ def test_drl_long_card_matches_cpu_float32(cuda_device):
     print(f"\nDRL-Long float32 on {torch.cuda.get_device_name(0)}: largest action difference "
           f"{float((got - want).abs().max()):.3g} with TF32 off, "
           f"{float((tf32 - want).abs().max()):.3g} with TF32 on")
+
+
+# DRL-Long's convolution kernel sums in the order of the cuDNN kernel that the
+# plain version runs at 512 beams (csrc/drl_long_conv.cu), so there it gives
+# the plain version's bits in float32 at any batch; at other lengths cuDNN may
+# choose another kernel, and float32 outputs of order 1 then differ by a few
+# roundings, some 1e-7
+CONV_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _conv_net(L, dtype, device):
+    net = drl_long.init_params(L, seed=L, dtype=dtype, device=device)
+    with torch.no_grad():
+        net.conv1.bias.uniform_(0.05, 0.3)    # relu(b1) > 0 where the pad must read 0
+    return net
+
+
+def _scans(seed, B, L, dtype, device):
+    rng = np.random.RandomState(seed)
+    return torch.as_tensor(rng.uniform(-0.5, 0.5, (B, 3, L)), dtype=dtype, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [512, 515])
+@pytest.mark.parametrize("B", [1, 7, 8195, 65536])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_drl_long_conv_kernel_matches_plain(cuda_device, dtype, B, L):
+    net = _conv_net(L, dtype, cuda_device)
+    x = _scans(B, B, L, dtype, cuda_device)
+    before = drl_long_conv.LAUNCHES
+    got = drl_long_conv.drl_long_conv_cuda(net, x)
+    torch.cuda.synchronize()
+    assert drl_long_conv.LAUNCHES == before + 1
+    want = drl_long_conv.drl_long_conv_plain(net, x)
+    assert got.shape == want.shape == (B, 32, drl_long_conv.out_len(L)) and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    # conv2's first and last positions read conv1's zero padding
+    torch.testing.assert_close(got[..., 0], want[..., 0], **CONV_TOL)
+    torch.testing.assert_close(got[..., -1], want[..., -1], **CONV_TOL)
+    torch.testing.assert_close(got, want, **CONV_TOL)
+    if dtype == torch.float32 and L == 512:
+        assert torch.equal(got, want)
+    if B == 65536:
+        print(f"\nDRL-Long convolution kernel {dtype} [{B}, 3, {L}] on "
+              f"{torch.cuda.get_device_name(0)}: largest difference from the plain version "
+              f"{float((got - want).abs().max()):.3g}")
+
+
+@pytest.mark.cuda
+def test_drl_long_conv_kernel_raises_on_what_it_does_not_take(cuda_device):
+    net = _conv_net(512, torch.float32, cuda_device)
+    x = _scans(0, 8, 512, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        drl_long_conv.drl_long_conv_cuda(net, x.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match=r"\[B, 3, L\]"):
+        drl_long_conv.drl_long_conv_cuda(net, x[:, :2].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        drl_long_conv.drl_long_conv_cuda(net, x.double())
+    with pytest.raises(ValueError, match="is on"):
+        drl_long_conv.drl_long_conv_cuda(net, x.cpu())
+
+
+@pytest.mark.cuda
+def test_drl_long_forward_launches_the_conv_kernel_once(cuda_device):
+    net = drl_long.load_params(device=cuda_device)
+    x = _scans(1, 4096, 512, torch.float32, cuda_device)
+    goal = torch.ones(4096, 2, device=cuda_device)
+    speed = torch.zeros(4096, 2, device=cuda_device)
+    before = drl_long_conv.LAUNCHES
+    mean = drl_long.forward(net, x, goal, speed)
+    torch.cuda.synchronize()
+    assert drl_long_conv.LAUNCHES == before + 1
+    assert mean.shape == (4096, 2) and torch.isfinite(mean).all()
+    # a net that requires gradients (the PPO trainer's) stays on cuDNN and autograd
+    trainer = drl_long.init_actor_critic_params(512, seed=2, device=cuda_device)
+    trainer.requires_grad_(True)
+    m, _log_std, value = drl_long.forward_actor_critic(trainer, x, goal, speed)
+    (m.sum() + value.sum()).backward()
+    torch.cuda.synchronize()
+    assert drl_long_conv.LAUNCHES == before + 1
+    assert trainer.conv1.weight.grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_drl_long4_step_launches_the_conv_kernel_once(cuda_device):
+    """A server built as the benchmark builds ``drl_long4``'s (its env
+    config, the laser alone, the empty map) at 256 envs: one launch a step."""
+    root = Path(__file__).resolve().parent.parent
+    config = json.loads((root / "perfbench" / "configs" / "drl_long4.json").read_text())
+    cfg = EnvConfig(**config["env"])
+    world = config["world"]
+    static, cells = paths.map_inputs(cfg, cuda_device)
+    pool = random_cases.scenario_pool(16, config["num_agents"], seed=5, side_length=4.0)
+    server = AutoresetServer(
+        cfg, pool, np.full(config["num_agents"], config["policy_id"], np.int32), num_envs=256,
+        steps_per_dispatch=2, params={"drl_long": drl_long.load_params(device=cuda_device)},
+        device=cuda_device, sensors=tuple(world["sensors"]),
+        states_in_obs=tuple(world["states_in_obs"]), static_map=static, static_cells=cells)
+    torch.cuda.synchronize()
+    before = drl_long_conv.LAUNCHES
+    server.dispatch()
+    torch.cuda.synchronize()
+    assert drl_long_conv.LAUNCHES == before + 2

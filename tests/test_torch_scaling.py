@@ -92,7 +92,7 @@ def test_dryrun_multichip_two_cpu_ranks(dryrun2):
     assert all(np.isfinite(v) for v in dryrun2[0]["ppo"].values())
     # the wrappers run the plain versions on the CPU: no launch counted
     assert all(r["launches"] == {"pairwise": 0, "raymarch": 0, "laser_fused": 0,
-                                 "cadrl_value": 0}
+                                 "cadrl_value": 0, "drl_long_conv": 0}
                for r in dryrun2)
 
 
