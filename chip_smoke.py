@@ -18,10 +18,7 @@ one ``fill_`` of K1's output bytes, the least a launch costs in a CUDA
 graph.  K1 is held and timed alone and with its reward epilogue (the env
 step's whole reward stage, the one launch ``_compute_rewards`` makes), each
 in its layout and one thread a row, at ``[16384, 4]``, ``[256, 20]`` and
-``[512, 40]``, beside the previous route (K1, then the plain reward chain's
-launches), and the main path runs on both routes in turns (previous, fused,
-fused, previous: env-steps/s and one traced dispatch each, kernels a step
-and the kernels only one route launches).  Every in-path capture below
+``[512, 40]``, beside its plain versions.  Every in-path capture below
 holds K1's four outputs (collision, nearest gap, reward, latched
 ``in_collision``) bitwise.  SA-CADRL's value-net kernel (``csrc/cadrl_value.cu``,
 which replaces no Pallas kernel) is held against its plain version at tile
@@ -163,6 +160,8 @@ import time
 import numpy as np
 import torch
 
+from gym_collision_avoidance_torch import ops
+
 # H100 SXM data-sheet peaks (the card's power limit is printed beside them).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # float32 outside the tensor cores
@@ -177,7 +176,6 @@ E_LASER, A_LASER, L_LASER = 256, 20, 512
 LASER_STEPS, LASER_DISPATCHES = 64, 4
 E_DRL2_STEP = 64       # envs of drl2's whole compared step
 POLICY_STEPS, POLICY_DISPATCHES = 64, 3
-KERNEL_SOURCES = ("pairwise", "raymarch", "laser_fused", "cadrl_value", "drl_long_conv")
 # timed iterations of each training path (after one warm-up), and the size of
 # the card-against-CPU training step
 TRAIN_ITERS = {"train_ga3c4": 3, "train_drl2": 3, "train_mlp2": 1}
@@ -197,6 +195,12 @@ METRICS_TOL = dict(rtol=1e-5, atol=1e-6)
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def check_launches(what, launches, want):
+    """Check the launch counts of the kernel sources that ``want`` names."""
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{what}: launches {got}, not {want}")
 
 
 def nvidia_smi_line():
@@ -271,8 +275,8 @@ def pairwise_inputs(seed, E, A, dtype, device, nan=False):
 def phase_build(build):
     """Build every kernel, one nvcc per source, all started together."""
     t0 = time.perf_counter()
-    build.build(KERNEL_SOURCES)
-    print(f"build: {', '.join(n + '.cu' for n in KERNEL_SOURCES)} in "
+    build.build(build.SOURCES)
+    print(f"build: {', '.join(n + '.cu' for n in build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -332,22 +336,11 @@ K1_SHAPES = ((E_MAIN, A_MAIN, False), (E_LASER, A_LASER, True), (512, 40, False)
 K1_LANES = (1, 2, 4, 8, 16, 32)     # threads a row, in the layout sweep
 
 
-def previous_reward_route(pairwise):
-    """The reward stage as the port ran it before the epilogue was fused:
-    K1's kernel, then the plain chain as separate launches on the card.
-    Composed here only, to measure against."""
-    def route(*args):
-        coll, near = pairwise.pairwise_collisions_cuda(*args[:3])
-        return (coll, near, *pairwise.reward_chain_plain(coll, near, *args[2:]))
-    return route
-
-
 def time_k1_shape(pairwise, E, A, wall):
     """Device ms (CUDA-graph replay) and bytes bounds of K1 alone and of its
     launch with the reward epilogue, in the layout ``lanes_for`` picks and in
-    every layout of K1_LANES (each held bitwise first), of both plain
-    versions and of the previous route, on seeded inputs of shape
-    ``[E, A]``."""
+    every layout of K1_LANES (each held bitwise first), and of both plain
+    versions, on seeded inputs of shape ``[E, A]``."""
     args = reward_inputs(8, E, A, torch.float32, DEVICE, wall=wall)
     k1_args = args[:3]
     layouts = {}
@@ -361,13 +354,12 @@ def time_k1_shape(pairwise, E, A, wall):
         layouts[lanes] = {
             "k1_ms": graph_ms(lambda: pairwise.pairwise_collisions_cuda(*k1_args, lanes=lanes)),
             "fused_ms": graph_ms(lambda: pairwise.pairwise_rewards_cuda(*args, lanes=lanes))}
-    previous = previous_reward_route(pairwise)
     line = {"shape": [E, A], "wall": wall, "lanes": pairwise.lanes_for(A),
             "k1_ms": graph_ms(lambda: pairwise.pairwise_collisions_cuda(*k1_args)),
             "k1_plain_ms": graph_ms(lambda: pairwise.pairwise_collisions_plain(*k1_args)),
             "fused_ms": graph_ms(lambda: pairwise.pairwise_rewards_cuda(*args)),
             "fused_plain_ms": graph_ms(lambda: pairwise.pairwise_rewards_plain(*args)),
-            "previous_route_ms": graph_ms(lambda: previous(*args)), "layouts": layouts}
+            "layouts": layouts}
     coll, near, reward, latched = pairwise.pairwise_rewards_plain(*args)
     pos, radius, valid, past = args[0], args[1], args[2], args[7]
     k1_bytes = moved_bytes(pos, radius, valid, coll, near)
@@ -391,8 +383,7 @@ def phase_kernels(pairwise):
     """Hold K1 bitwise against its plain version, alone and with its reward
     epilogue (the launch the env step makes); time both at K1_SHAPES in
     every layout, on the device (CUDA graph replay) and, at the main path's
-    shape, as eager calls beside the previous route (K1, then the plain
-    chain)."""
+    shape, as eager calls."""
     worst = 0.0
     cases = [(torch.float32, E_MAIN, A_MAIN, False), (torch.float32, 512, 40, False),
              (torch.float64, 64, 4, False), (torch.float32, 64, 4, True)]
@@ -413,10 +404,10 @@ def phase_kernels(pairwise):
                     (torch.float32, 64, 4, True, True), (torch.float64, 64, 4, True, False)]
     for dtype, E, A, nan, wall in reward_cases:
         args = reward_inputs(7, E, A, dtype, DEVICE, nan, wall)
-        before = pairwise.LAUNCHES
+        before = ops.launch_counts()["pairwise"]
         outs = pairwise.pairwise_rewards(*args)
         torch.cuda.synchronize()
-        check(pairwise.LAUNCHES == before + 1, "pairwise_rewards: one launch")
+        check(ops.launch_counts()["pairwise"] == before + 1, "pairwise_rewards: one launch")
         worst = max(worst, hold_k1(pairwise.pairwise_rewards_plain, args, outs,
                                    f"rewards {dtype} E={E} A={A} nan={nan} wall={wall}"))
         check(outs[3] is not args[6], "the latch must be a new tensor")
@@ -430,10 +421,8 @@ def phase_kernels(pairwise):
     launch_floor_ms = graph_ms(lambda: floor_buf.fill_(0))
     # the same calls issued eagerly at the main path's shape, host overhead included
     args = reward_inputs(8, E_MAIN, A_MAIN, torch.float32, DEVICE)
-    previous = previous_reward_route(pairwise)
     eager = {"k1_eager_ms": median_ms(lambda: pairwise.pairwise_collisions_cuda(*args[:3])),
              "fused_eager_ms": median_ms(lambda: pairwise.pairwise_rewards_cuda(*args)),
-             "previous_route_eager_ms": median_ms(lambda: previous(*args)),
              "fused_plain_eager_ms": median_ms(lambda: pairwise.pairwise_rewards_plain(*args))}
     summary = {"kernel": "pairwise_collisions", "launch_floor_ms": launch_floor_ms,
                "library_ms": None, "launches_per_step": 1, **eager, "by_shape": shapes}
@@ -459,17 +448,14 @@ def serving_path(name):
     return paths.serving_path(name, DEVICE)
 
 
-def phase_serving(name, kernels, path, laser=None, steps=STEPS_PER_DISPATCH,
+def phase_serving(name, path, launched=("pairwise",), steps=STEPS_PER_DISPATCH,
                   dispatches=DISPATCHES):
     """Drive ``path``'s AutoresetServer at its full width; the counts go to
-    0 after construction, and K1 must launch once per step, the ``laser``
-    kernel (``"raymarch"`` or ``"laser_fused"``) once per step if given, and
-    no other laser kernel."""
+    0 after construction, and each kernel source of ``launched`` must
+    launch once per step, and no other."""
     server = path.server(steps_per_dispatch=steps, device=DEVICE)
     num_envs, policy_id = path.num_envs, path.policy_id
-    torch.cuda.synchronize()
-    for k in kernels.values():
-        k.LAUNCHES = 0
+    zero_counts()
     server.dispatch()                                   # warm-up dispatch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -477,14 +463,10 @@ def phase_serving(name, kernels, path, laser=None, steps=STEPS_PER_DISPATCH,
         out = server.dispatch()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {n: k.LAUNCHES for n, k in kernels.items()}
+    launches = ops.launch_counts()
     total = (dispatches + 1) * steps
-    check(launches["pairwise"] == total,
-          f"{name}: K1 launched {launches['pairwise']} times in {total} steps")
-    for kernel in ("raymarch", "laser_fused"):
-        want = total if kernel == laser else 0
-        check(launches[kernel] == want,
-              f"{name}: {kernel} launched {launches[kernel]} times, not {want}")
+    check_launches(f"{name} in {total} steps", launches,
+                   {k: total if k in launched else 0 for k in launches})
 
     for leaf_name, leaf in server.states().items():
         if leaf.is_floating_point():
@@ -504,85 +486,6 @@ def phase_serving(name, kernels, path, laser=None, steps=STEPS_PER_DISPATCH,
         line["steps_with_overflow"] = int(out["exactness_overflow"].sum())
     print(json.dumps({name: line}), flush=True)
     return launches, server.states()
-
-
-AB_STEPS, AB_DISPATCHES = 32, 3     # per turn of the reward-route A/B
-
-
-@contextlib.contextmanager
-def reward_route(pairwise, route):
-    """Run the block with ``pairwise.pairwise_rewards_cuda`` replaced by
-    ``route``."""
-    orig = pairwise.pairwise_rewards_cuda
-    pairwise.pairwise_rewards_cuda = route
-    try:
-        yield
-    finally:
-        pairwise.pairwise_rewards_cuda = orig
-
-
-def traced_dispatch(server, steps):
-    """Kernels a step, device busy ms a step and kernel counts by name of
-    one traced dispatch."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        server.dispatch()
-        torch.cuda.synchronize()
-    # the device-side copies of the port's gca.* spans are no kernels
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("gca.")]
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0) + 1
-    return {"kernels_per_step": len(kernels) / steps,
-            "device_busy_ms_per_step": sum(e.time_range.elapsed_us() for e in kernels)
-            / 1e3 / steps}, by_name
-
-
-def phase_reward_ab(pairwise):
-    """The main path's server with the reward stage on the previous route
-    (K1's kernel, then the plain chain's launches) and on the fused launch,
-    in turns (previous, fused, fused, previous): env-steps/s of each turn,
-    then one traced dispatch of each route (kernels and device busy ms a
-    step, and the kernels by name that only one route launches)."""
-    routes = {"previous": previous_reward_route(pairwise),
-              "fused": pairwise.pairwise_rewards_cuda}
-    server = serving_path("main").server(steps_per_dispatch=AB_STEPS, device=DEVICE)
-    num_envs = serving_path("main").num_envs
-    rates = {name: [] for name in routes}
-    for name in ("previous", "fused", "fused", "previous"):
-        with reward_route(pairwise, routes[name]):
-            server.dispatch()                           # warm-up after the switch
-            torch.cuda.synchronize()
-            pairwise.LAUNCHES = 0
-            t0 = time.perf_counter()
-            for _ in range(AB_DISPATCHES):
-                server.dispatch()
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            steps = AB_DISPATCHES * AB_STEPS
-            check(pairwise.LAUNCHES == steps,
-                  f"reward A/B {name}: K1 launched {pairwise.LAUNCHES} times in {steps} steps")
-            rates[name].append(steps * num_envs / seconds)
-    traced, names = {}, {}
-    for name, route in routes.items():
-        with reward_route(pairwise, route):
-            traced[name], names[name] = traced_dispatch(server, AB_STEPS)
-    # kernels a step that one route launches more often than the other
-    only = {a: {k: (n - names[b].get(k, 0)) / AB_STEPS for k, n in names[a].items()
-                if names[b].get(k, 0) < n}
-            for a, b in (("previous", "fused"), ("fused", "previous"))}
-    check(traced["fused"]["kernels_per_step"] < traced["previous"]["kernels_per_step"],
-          f"reward A/B: the fused route launches no fewer kernels: {traced}")
-    ratio = float(np.mean(rates["fused"]) / np.mean(rates["previous"]))
-    print(json.dumps({"reward_ab": {
-        "num_envs": num_envs, "steps_per_turn": AB_DISPATCHES * AB_STEPS,
-        "order": ["previous", "fused", "fused", "previous"],
-        "env_steps_per_s": rates, "fused_over_previous": ratio, "traced": traced,
-        "kernels_per_step_only_in": {a: {k[:80]: v for k, v in d.items()}
-                                     for a, d in only.items()}}}), flush=True)
 
 
 ANGLE_LEAVES = ("state.heading_ego_frame", "obs.heading_ego_frame")
@@ -948,21 +851,14 @@ def phase_policy_card_vs_cpu():
 
 
 def phase_networks():
-    """Device time of SA-CADRL's value net on cadrl4's ``[E, A, 47, 31]``
-    batch and of DRL-Long's CNN on drl2's 8192 rows (CUDA graphs of the
-    calls, TF32 off) beside their float32 FLOP bounds at 67 TFLOP/s: the
-    products' multiply-adds, 2 FLOP each."""
-    from gym_collision_avoidance_torch.models import cadrl, drl_long
+    """Device time of DRL-Long's CNN on drl2's 8192 rows (a CUDA graph of
+    the calls, TF32 off) beside its float32 FLOP bound at 67 TFLOP/s: the
+    products' multiply-adds, 2 FLOP each.  (SA-CADRL's value net is timed
+    against its bound by :func:`phase_cadrl_value`.)"""
+    from gym_collision_avoidance_torch.models import drl_long
 
-    cadrl4, drl2 = serving_path("cadrl4"), serving_path("drl2")
+    drl2 = serving_path("drl2")
     rng = np.random.RandomState(3)
-    net = cadrl4.params["cadrl"]
-    x = torch.as_tensor(rng.randn(cadrl4.num_envs, len(cadrl4.policy_id), 47, 31),
-                        dtype=torch.float32, device=DEVICE)
-    rows = x.numel() // 31
-    flop = 2.0 * rows * sum(w.numel() for w in (net.W0, net.W1, net.W3, net.W4))
-    with torch.no_grad():
-        value_ms = graph_ms(lambda: cadrl.forward_raw(net, x), inner=3)
     cnn = drl2.params["drl_long"]
     B = drl2.num_envs * len(drl2.policy_id)
     scan = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, 3, 512)), dtype=torch.float32,
@@ -974,9 +870,7 @@ def phase_networks():
             + 2 * 128)
     with torch.no_grad():
         cnn_ms = graph_ms(lambda: drl_long.forward(cnn, scan, goal, speed), inner=5)
-    out = {"cadrl_value_net": {"rows": rows, "gflop": flop / 1e9, "ms": value_ms,
-                               "bound_ms": flop / F32_FLOPS * 1e3},
-           "drl_long_cnn": {"rows": B, "gflop": 2.0 * macs * B / 1e9, "ms": cnn_ms,
+    out = {"drl_long_cnn": {"rows": B, "gflop": 2.0 * macs * B / 1e9, "ms": cnn_ms,
                             "bound_ms": 2.0 * macs * B / F32_FLOPS * 1e3}}
     print(json.dumps({"networks": out}), flush=True)
 
@@ -1007,10 +901,10 @@ def phase_cadrl_value():
         net = cadrl.load_params(dtype=dtype, device=DEVICE)
         x = torch.as_tensor(rng.randn(rows, 31) * net.std_vec.cpu().double().numpy()
                             + net.avg_vec.cpu().double().numpy(), dtype=dtype, device=DEVICE)
-        before = cadrl_value.LAUNCHES
+        before = ops.launch_counts()["cadrl_value"]
         got = cadrl.forward_raw(net, x)
         torch.cuda.synchronize()
-        check(cadrl_value.LAUNCHES == before + 1, "cadrl_value: one launch")
+        check(ops.launch_counts()["cadrl_value"] == before + 1, "cadrl_value: one launch")
         want = cadrl.forward_raw_plain(net, x)
         err = max_abs_err(got, want)
         check(err <= VALUE_ATOL[dtype], f"cadrl_value {dtype} R={rows}: differs by {err}")
@@ -1177,10 +1071,10 @@ def phase_drl_long_conv():
             with torch.no_grad():
                 net.conv1.bias.uniform_(0.05, 0.3)    # relu(b1) > 0 where the pad must read 0
         x = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, 3, L)), dtype=dtype, device=DEVICE)
-        before = conv.LAUNCHES
+        before = ops.launch_counts()["drl_long_conv"]
         got = conv.drl_long_conv_cuda(net, x)
         torch.cuda.synchronize()
-        check(conv.LAUNCHES == before + 1, "drl_long_conv: one launch")
+        check(ops.launch_counts()["drl_long_conv"] == before + 1, "drl_long_conv: one launch")
         want = conv.drl_long_conv_plain(net, x)
         check(got.shape == want.shape == (B, 32, conv.out_len(L)),
               f"drl_long_conv B={B} L={L}: shape {tuple(got.shape)}")
@@ -1479,7 +1373,7 @@ def finite_metrics(name, metrics):
     return values
 
 
-def phase_training(name, kernels, profiler):
+def phase_training(name, profiler):
     """Train ``name``'s recipe at its width: one warm-up iteration, the
     counts to 0, ``TRAIN_ITERS[name]`` timed iterations (each phase ends in
     a synchronise), then one traced iteration.  K1 must launch once per
@@ -1492,9 +1386,7 @@ def phase_training(name, kernels, profiler):
     carry = path.init(trainer)
     gen = torch.Generator(DEVICE).manual_seed(7)
     *carry, _ = trainer.train_step(*carry, rng=gen)
-    torch.cuda.synchronize()
-    for k in kernels.values():
-        k.LAUNCHES = 0
+    zero_counts()
     iters, T, E = TRAIN_ITERS[name], path.ppo.horizon, path.ppo.num_envs
     timings, metrics = {}, []
     t0 = time.perf_counter()
@@ -1503,7 +1395,7 @@ def phase_training(name, kernels, profiler):
         metrics.append(m)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {n: k.LAUNCHES for n, k in kernels.items()}
+    launches = ops.launch_counts()
     check(launches["pairwise"] == iters * T,
           f"{name}: K1 launched {launches['pairwise']} times in {iters * T} rollout steps")
     want_k2 = iters * T if name == "train_drl2" else 0
@@ -1863,7 +1755,7 @@ def replay_differing(name, cases, ref, full, why="outcome differs from JAX", cel
     return out
 
 
-def phase_suite_4agent(kernels):
+def phase_suite_4agent():
     """The 500 frozen 4-agent cases of each suite cell as one batch on the
     card (``run_episode_batch``, chunks of 128 steps): K1 once a lockstep
     step and no laser kernel, finite stats, and each cell held against the
@@ -1877,14 +1769,12 @@ def phase_suite_4agent(kernels):
     by_cell, failed = {}, []
     for name, policy in paths.SUITE_PATHS.items():
         scenarios, cfg, params = suite_cell(name, DEVICE)
-        torch.cuda.synchronize()
-        for k in kernels.values():
-            k.LAUNCHES = 0
+        zero_counts()
         t0 = time.perf_counter()
         run = experiments.run_episode_batch(scenarios, cfg, params, device=DEVICE)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {n: k.LAUNCHES for n, k in kernels.items()}
+        launches = ops.launch_counts()
         stats, steps = run.stats, run.lockstep_steps
         check(launches["pairwise"] == steps,
               f"{name}: K1 launched {launches['pairwise']} times in {steps} steps")
@@ -2161,7 +2051,7 @@ def drl_long_positions(cli, ckpt, ref, cases, device):
     return np.stack(keep, axis=1)                      # [cases, T, A, 2]
 
 
-def phase_eval_drl_long(kernels):
+def phase_eval_drl_long():
     """``scripts/eval_drl_long_torch.py:evaluate_drl_long`` at the script's
     width: the shipped DRL-Long net greedy as agent 0 against RVO on the 500
     frozen 2-agent cases, E = 500, 250 steps (K1 at [500, 2] once a step; K2
@@ -2180,15 +2070,15 @@ def phase_eval_drl_long(kernels):
     ckpt = os.path.join(WEIGHTS, ref["ckpt"])
     A, E, T = ref["agents"], ref["cases"], ref["steps"]
     k1, k1_out, k2, k2_out = [], [], [], []
-    zero_counts(kernels)
+    zero_counts()
     t0 = time.perf_counter()
     with capture(pairwise, "pairwise_rewards_cuda", k1, k1_out, ENTRY_K_STEPS), \
             capture(raymarch, "raymarch_cuda", k2, k2_out, ENTRY_K_STEPS + 1):
         out = cli.evaluate_drl_long(ckpt, A, E, T, device=DEVICE)
     seconds = time.perf_counter() - t0
-    launches = rank_counts(kernels)
-    check(launches == {"pairwise": T, "raymarch": T + 1, "laser_fused": 0},
-          f"eval_drl_long: launches {launches} in {T} steps")
+    launches = ops.launch_counts()
+    check_launches(f"eval_drl_long in {T} steps", launches,
+                   {"pairwise": T, "raymarch": T + 1, "laser_fused": 0, "drl_long_conv": T})
     # the reset's and the first steps' launches
     k1_err = max(hold_k1(pairwise.pairwise_rewards_plain, args, out_k, f"eval_drl_long step {t}")
                  for t, (args, out_k) in enumerate(zip(k1, k1_out)))
@@ -2225,7 +2115,7 @@ def phase_eval_drl_long(kernels):
     return {"eval_drl_long": launches}
 
 
-def phase_eval_trained_net(kernels, trained_ga3c4):
+def phase_eval_trained_net(trained_ga3c4):
     """``scripts/eval_trained_net_torch.py:evaluate_trained_net`` on the
     shipped flagship ``ppo_selfplay_10agent_tpu`` over the 500 frozen cases
     of the 2-, 3- and 4-agent cells, each cell timed, K1 once a lockstep
@@ -2248,20 +2138,20 @@ def phase_eval_trained_net(kernels, trained_ga3c4):
     by_cell, failed = {}, []
     for n in TRAINED_AGENTS:
         calls, outs = [], []
-        zero_counts(kernels)
+        zero_counts()
         t0 = time.perf_counter()
         with capture(pairwise, "pairwise_rewards_cuda", calls, outs, ENTRY_K_STEPS):
             name, runs = cli.evaluate_trained_net(FLAGSHIP, (n,), device=DEVICE)
         seconds = time.perf_counter() - t0
-        launches = rank_counts(kernels)
+        launches = ops.launch_counts()
         run = runs[n]
         k1_err = max(hold_k1(pairwise.pairwise_rewards_plain, args, out, f"{name} at {n}")
                      for args, out in zip(calls, outs))
         shape = list(calls[0][0].shape[:2])
         check(shape == [len(run.stats), n], f"{name} at {n}: K1 held at {shape}")
         del calls, outs
-        check(launches == {"pairwise": run.lockstep_steps, "raymarch": 0, "laser_fused": 0},
-              f"{name} at {n}: launches {launches} in {run.lockstep_steps} steps")
+        check_launches(f"{name} at {n} in {run.lockstep_steps} steps", launches,
+                       {"pairwise": run.lockstep_steps, "raymarch": 0, "laser_fused": 0})
         record = experiments.cell_record(n, name, run.stats)
         ref = reference[(n, name)]
         cmp = experiments.compare_outcomes(ref, record)
@@ -2304,7 +2194,7 @@ def phase_eval_trained_net(kernels, trained_ga3c4):
     return by_cell
 
 
-def phase_reinforce(kernels):
+def phase_reinforce():
     """``scripts/train_example_torch.py`` at the CLI's defaults (E = 256,
     T = 40, 2 agents; K1 at [256, 2] once a rollout step).  One iteration on
     the card from the CPU's initial weights and noise against the same
@@ -2324,7 +2214,7 @@ def phase_reinforce(kernels):
     eps = torch.randn((T, E, 2), generator=gen)
     steps = {}
     calls, outs = [], []
-    zero_counts(kernels)
+    zero_counts()
     for d, trainer in trainers.items():
         p = {k: v.to(d).requires_grad_(True) for k, v in init.items()}
         with capture(pairwise, "pairwise_rewards_cuda", calls, outs, ENTRY_K_STEPS):
@@ -2332,8 +2222,8 @@ def phase_reinforce(kernels):
         steps[d] = {"params": {k: v.detach().cpu() for k, v in p.items()},
                     "grads": {k: v.cpu() for k, v in grads.items()},
                     "loss": float(loss), "mean_return": float(ret)}
-    check(pairwise.LAUNCHES == T, f"reinforce: K1 launched {pairwise.LAUNCHES} times in {T} "
-          "steps")
+    k1 = ops.launch_counts()["pairwise"]
+    check(k1 == T, f"reinforce: K1 launched {k1} times in {T} steps")
     k1_err = max(hold_k1(pairwise.pairwise_rewards_plain, args, out, f"reinforce step {t}")
                  for t, (args, out) in enumerate(zip(calls, outs)))
     shape = list(calls[0][0].shape[:2])
@@ -2350,14 +2240,14 @@ def phase_reinforce(kernels):
     trainer = trainers[DEVICE]
     gen = torch.Generator(DEVICE).manual_seed(0)
     trainer.run(1, generator=gen)
-    zero_counts(kernels)
+    zero_counts()
     t0 = time.perf_counter()
     params, rets = trainer.run(REINFORCE_ITERS, generator=gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = rank_counts(kernels)
-    check(launches == {"pairwise": REINFORCE_ITERS * T, "raymarch": 0, "laser_fused": 0},
-          f"reinforce: launches {launches} in {REINFORCE_ITERS} iterations of {T} steps")
+    launches = ops.launch_counts()
+    check_launches(f"reinforce in {REINFORCE_ITERS} iterations of {T} steps", launches,
+                   {"pairwise": REINFORCE_ITERS * T, "raymarch": 0, "laser_fused": 0})
     check(all(math.isfinite(r) for r in rets), f"reinforce: non-finite returns {rets}")
     check(all(bool(torch.isfinite(v).all()) for v in params.values()),
           "reinforce: non-finite parameters")
@@ -2417,7 +2307,7 @@ def bench_row_envs(bench):
     return envs
 
 
-def phase_bench_rows(kernels):
+def phase_bench_rows():
     """Every row of ``scripts/bench_all_torch.py`` once at its env count
     (:func:`bench_row_envs`), BENCH_ROW_STEPS steps a dispatch, one window
     of one dispatch after the warm-up, counts from 0 before each row: K1
@@ -2461,16 +2351,16 @@ def phase_bench_rows(kernels):
 
             rows.timed_windows = counted
             calls, outs = [], []
-            zero_counts(kernels)
+            zero_counts()
             with capture(pairwise, "pairwise_rewards_cuda", calls, outs,
                          ENTRY_K_STEPS if name == "ga3c40" else 0):
                 row = fn(envs[name], BENCH_ROW_STEPS, device=DEVICE, reps=1, pipeline=1)
             torch.cuda.synchronize()
-            launches = rank_counts(kernels)
+            launches = ops.launch_counts()
             steps = 2 * row["num_steps"]                  # the warm-up and the window
             want = {"pairwise": steps, "raymarch": 0,
                     "laser_fused": steps if name == "ga3c20_laser" else 0}
-            check(launches == want, f"bench_rows {name}: launches {launches}, not {want}")
+            check_launches(f"bench_rows {name}", launches, want)
             check(row["env_steps_per_sec"] > 0 and row.get("nan_free", True),
                   f"bench_rows {name}: {row}")
             line = {"num_envs": row["num_envs"], "steps": steps,
@@ -2490,14 +2380,15 @@ def phase_bench_rows(kernels):
             by_path[f"bench_{name}"] = launches
     finally:
         rows.timed_windows = timed
-    zero_counts(kernels)
+    zero_counts()
     clean = bench._exactness_check(DEVICE)
-    k1_clean = pairwise.LAUNCHES
+    k1_clean = ops.launch_counts()["pairwise"]
     fault = bench._exactness_check(DEVICE, fault=True)
+    k1_both = ops.launch_counts()["pairwise"]
     check(clean == "ok", f"bench_rows: the clean tripwire failed: {clean}")
     check(fault.startswith("MISMATCH"), f"bench_rows: the TF32 fault did not trip: {fault}")
-    check(k1_clean == bench.EXACTNESS_STEPS and pairwise.LAUNCHES == 2 * k1_clean,
-          f"bench_rows: K1 launched {k1_clean}, {pairwise.LAUNCHES} times in the tripwire")
+    check(k1_clean == bench.EXACTNESS_STEPS and k1_both == 2 * k1_clean,
+          f"bench_rows: K1 launched {k1_clean}, {k1_both} times in the tripwire")
     print(json.dumps({"bench_rows": {
         "device": nvidia_smi_line(), "steps_per_dispatch": BENCH_ROW_STEPS,
         "sync_warnings_per_read": calibration, "rows": lines,
@@ -2554,14 +2445,9 @@ def joined(results, case, key):
     return np.concatenate([np.asarray(p) for p in parts])
 
 
-def rank_counts(kernels):
-    return {n: k.LAUNCHES for n, k in kernels.items()}
-
-
-def zero_counts(kernels):
+def zero_counts():
     torch.cuda.synchronize()
-    for k in kernels.values():
-        k.LAUNCHES = 0
+    ops.zero_launch_counts()
 
 
 @contextlib.contextmanager
@@ -2625,7 +2511,7 @@ def ranks_loss(trainer, perm, parts):
     return trainer
 
 
-def rank_serving(mesh, kernels):
+def rank_serving(mesh):
     """The main path's AutoresetServer on this rank's slice of its 16384
     envs: 4 dispatches of 128 steps (the last 3 timed), K1 counted from 0 and
     its first 2 launches captured and held bitwise against the plain
@@ -2634,7 +2520,7 @@ def rank_serving(mesh, kernels):
 
     path = paths.serving_path("main", mesh.device)
     server = path.server(steps_per_dispatch=STEPS_PER_DISPATCH, mesh=mesh)
-    zero_counts(kernels)
+    zero_counts()
     dispatches, held = [], []
     with held_k1(mesh, "parallel_serving", held):
         dispatches.append(server.dispatch())
@@ -2644,14 +2530,14 @@ def rank_serving(mesh, kernels):
         dispatches.append(server.dispatch())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return {"launches": rank_counts(kernels), "k1_held": held, "seconds": seconds,
+    return {"launches": ops.launch_counts(), "k1_held": held, "seconds": seconds,
             "timed_steps": (DISPATCHES - 1) * STEPS_PER_DISPATCH,
             "outs": [{k: v.cpu() for k, v in d.items()} for d in dispatches],
             "states": state_leaves(server.states()), "counters": server._counters.cpu(),
             "episodes": server.episodes_completed()}
 
 
-def rank_ga3c4(mesh, kernels):
+def rank_ga3c4(mesh):
     """One dispatch of ga3c4 on this rank's slice of its 4096 envs, the
     iros18 weights broadcast from rank 0; K1 counted from 0 and held."""
     from gym_collision_avoidance_torch.harness import paths
@@ -2660,11 +2546,11 @@ def rank_ga3c4(mesh, kernels):
     path = paths.serving_path("ga3c4", mesh.device)
     distributed.replicate_global(path.params, mesh)
     server = path.server(steps_per_dispatch=PAR_GA3C_STEPS, mesh=mesh)
-    zero_counts(kernels)
+    zero_counts()
     held = []
     with held_k1(mesh, "parallel_ga3c4", held):
         out = server.dispatch()
-    return {"launches": rank_counts(kernels), "k1_held": held,
+    return {"launches": ops.launch_counts(), "k1_held": held,
             "states": state_leaves(server.states()),
             "counters": server._counters.cpu(), "mean_reward": out["mean_reward"].cpu(),
             "obs_checksum": out["obs_checksum"].cpu()}
@@ -2682,7 +2568,7 @@ def rollout_states(device):
                                                      device=device), path.cfg)[0]
 
 
-def rank_rollout(mesh, kernels):
+def rank_rollout(mesh):
     """``make_distributed_rollout`` of PAR_ROLLOUT_STEPS steps on this rank's
     slice of PAR_ROLLOUT_ENVS envs; K1 counted from 0 and held."""
     from gym_collision_avoidance_torch.parallel import distributed, mesh as pmesh
@@ -2691,11 +2577,11 @@ def rank_rollout(mesh, kernels):
     local = distributed.host_local_batch(lambda idx: pmesh.shard_env_batch(states, mesh),
                                          PAR_ROLLOUT_ENVS, mesh)
     run = distributed.make_distributed_rollout(path.cfg, PAR_ROLLOUT_STEPS, mesh, path.active)
-    zero_counts(kernels)
+    zero_counts()
     held = []
     with held_k1(mesh, f"rollout over {mesh.backend}", held):
         final, metrics = run(local)
-    return {"launches": rank_counts(kernels), "k1_held": held, "states": state_leaves(final),
+    return {"launches": ops.launch_counts(), "k1_held": held, "states": state_leaves(final),
             "metrics": {k: v.cpu() for k, v in metrics.items()}}
 
 
@@ -2707,7 +2593,7 @@ def sharded_mlp2():
     return path, dataclasses.replace(path.ppo, epochs=1, num_minibatches=1)
 
 
-def rank_sharded_ppo(mesh, kernels):
+def rank_sharded_ppo(mesh):
     """train_mlp2 on this rank's 512 of its 1024 envs: one 1 x 1 iteration
     from ``init_fn``'s carry and seed 7 (K1 held, the applied gradients
     kept), then one timed 4 x 4 iteration (after a warm-up) with its phase
@@ -2729,18 +2615,18 @@ def rank_sharded_ppo(mesh, kernels):
     step4, init4, _ = make_sharded_ppo(path.ppo, mesh, pool=path.pool)
     carry, gen = init4(path.ppo.seed), torch.Generator(mesh.device).manual_seed(7)
     *carry, _ = step4(*carry, rng=gen)
-    zero_counts(kernels)
+    zero_counts()
     timings = {}
     t0 = time.perf_counter()
     *carry, metrics = step4(*carry, rng=gen, timings=timings)
     torch.cuda.synchronize()
     result.update(seconds=time.perf_counter() - t0, timings=timings,
-                  launches=rank_counts(kernels),
+                  launches=ops.launch_counts(),
                   metrics4={k: float(v) for k, v in metrics.items()})
     return result
 
 
-def rank_sharded_resume(mesh, kernels, out_dir):
+def rank_sharded_resume(mesh, out_dir):
     """train_mlp2's recipe (E = 1024, T = 64, 4 x 4 minibatches) on this
     rank's rows: 2 iterations from ``init_fn``'s carry and a generator seeded
     7 (K1 counted from 0, its first launches held), saved with
@@ -2769,7 +2655,7 @@ def rank_sharded_resume(mesh, kernels, out_dir):
         distributed.save_sharded_state(files[name], carry + (gen,), CARRY_ENV_ROWS, mesh)
 
     step, carry, gen = start()
-    zero_counts(kernels)
+    zero_counts()
     held = []
     t0 = time.perf_counter()
     with held_k1(mesh, "sharded_resume", held):
@@ -2777,7 +2663,7 @@ def rank_sharded_resume(mesh, kernels, out_dir):
     carry = iterate(step, carry, gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = rank_counts(kernels)
+    launches = ops.launch_counts()
     save("two", carry, gen)
     step, carry, gen = start()
     save("one", iterate(step, carry, gen), gen)
@@ -2797,7 +2683,7 @@ def rank_sharded_resume(mesh, kernels, out_dir):
             "file_bytes": os.path.getsize(files["two"])}
 
 
-def rank_dryrun(mesh, kernels):
+def rank_dryrun(mesh):
     """``entry.dryrun_rank`` on this rank's 2 envs (the batched GA3C step
     twice, the distributed rollout, one sharded PPO iteration, two sharded
     serving dispatches), K1's first 2 launches (the batched step's, at [2,
@@ -2820,7 +2706,6 @@ def rank_main(argv):
     saves ``{case: result}`` for the parent."""
     import argparse
 
-    from gym_collision_avoidance_torch.ops import laser_fused, pairwise, raymarch
     from gym_collision_avoidance_torch.parallel import distributed, mesh as pmesh
 
     ap = argparse.ArgumentParser()
@@ -2831,14 +2716,13 @@ def rank_main(argv):
     distributed.init_distributed(backend, num_processes=args.num_processes,
                                  process_id=args.process_id, init_method=args.init_method)
     mesh = pmesh.make_mesh(device_type="cuda", device=torch.device(DEVICE, 0))
-    kernels = {"pairwise": pairwise, "raymarch": raymarch, "laser_fused": laser_fused}
     result = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
               "device": str(mesh.device)}
     rank_cases = dict(RANK_CASES, sharded_resume=functools.partial(rank_sharded_resume,
                                                                    out_dir=args.rank_out))
     for case in cases.split(","):
         t0 = time.perf_counter()
-        result[case] = rank_cases[case](mesh, kernels)
+        result[case] = rank_cases[case](mesh)
         result[case]["case_seconds"] = time.perf_counter() - t0
     distributed.save_rank_result(args, mesh, result)
     return 0
@@ -2874,7 +2758,7 @@ def phase_parallel_ranks():
     return results
 
 
-def phase_parallel_serving(results, kernels):
+def phase_parallel_serving(results):
     """The main path (E = 16384) on 2 ranks of 8192 envs against one
     unsharded server on the card: states and counters bitwise, episodes
     equal, the reduced metrics by :func:`hold_reduced` (the ranks sum their
@@ -2885,8 +2769,7 @@ def phase_parallel_serving(results, kernels):
     ranks = [r["serving"] for r in results]
     path = serving_path("main")
     server = path.server(steps_per_dispatch=STEPS_PER_DISPATCH, device=DEVICE)
-    for k in kernels.values():
-        k.LAUNCHES = 0
+    zero_counts()
     outs = [server.dispatch()]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2895,7 +2778,7 @@ def phase_parallel_serving(results, kernels):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     total = DISPATCHES * STEPS_PER_DISPATCH
-    check(kernels["pairwise"].LAUNCHES == total, "1 rank: K1 launch count")
+    check(ops.launch_counts()["pairwise"] == total, "1 rank: K1 launch count")
     for r in ranks:
         check(r["launches"]["pairwise"] == total,
               f"a rank launched K1 {r['launches']['pairwise']} times in {total} steps")
@@ -3153,7 +3036,7 @@ SCALE_MULTIPROC = ["--ranks", "1", "--envs", "128", "--steps", str(MULTIPROC_STE
 DRYRUN_K1 = 2 + 2 + 2 + 2 * 32    # the step twice, the rollout, PPO's horizon, 2 dispatches
 
 
-def phase_scaling(results, kernels):
+def phase_scaling(results):
     """The JAX repo's multi-device entry points as the port runs them, each
     rank's kernel launches counted from 0:
 
@@ -3184,14 +3067,14 @@ def phase_scaling(results, kernels):
 
     # entry(): one step on the card, K1 held, against the CPU's step
     fn, args = entry.entry(device=DEVICE)
-    zero_counts(kernels)
+    zero_counts()
     calls, outs = [], []
     t0 = time.perf_counter()
     with capture(pairwise, "pairwise_rewards_cuda", calls, outs):
         states, rew, game_over = fn(*args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    by_path["entry"] = rank_counts(kernels)
+    by_path["entry"] = ops.launch_counts()
     check(by_path["entry"]["pairwise"] == 1 and len(calls) == 1,
           f"entry: K1 {by_path['entry']}")
     err = hold_k1(pairwise.pairwise_rewards_plain, calls[0], outs[0], "entry")
@@ -3255,7 +3138,7 @@ def phase_scaling(results, kernels):
                     check(got == want, f"scaling_bench over {label}, {n} ranks, rank {i}: K1 "
                                        f"{got}, not {want}")
                     by_path[f"scaling_bench_{label}_{n}ranks_rank{i}"] = {
-                        k: sum(t[k] for t in tables.values()) for k in kernels}
+                        k: sum(t[k] for t in tables.values()) for k in ops.launch_counts()}
             line["scaling_bench"][label] = {"seconds": time.perf_counter() - t0,
                                             "platform": r["platform"], "tables": r["tables"]}
         collectives = script_module("collective_overhead_torch")
@@ -3286,7 +3169,7 @@ def phase_scaling(results, kernels):
     return by_path
 
 
-def phase_strict_parity(kernels):
+def phase_strict_parity():
     """STRICT_STEPS auto-reset steps of the main path at E = STRICT_ENVS with
     ``strict_parity=True`` on the card against the CPU: pos, heading, vel and
     speed bitwise equal (both compute atan2 and the dynamics on the host)."""
@@ -3297,14 +3180,13 @@ def phase_strict_parity(kernels):
     servers = {d: AutoresetServer(cfg, path.pool, path.policy_id, num_envs=STRICT_ENVS,
                                   steps_per_dispatch=STRICT_STEPS, device=d)
                for d in (DEVICE, "cpu")}
-    for k in kernels.values():
-        k.LAUNCHES = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     servers[DEVICE].dispatch()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = rank_counts(kernels)
+    launches = ops.launch_counts()
     servers["cpu"].dispatch()
     card, cpu = (state_leaves(servers[d].states()) for d in (DEVICE, "cpu"))
     differ = leaves_differ(card, cpu)
@@ -3326,13 +3208,11 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
               file=sys.stderr)
         return 1
-    from gym_collision_avoidance_torch.ops import (build, cadrl_value, drl_long_conv,
-                                                   laser_fused, pairwise, raymarch)
+    from gym_collision_avoidance_torch.ops import build, pairwise
 
     smi = nvidia_smi_line()
     print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible", flush=True)
-    kernels = {"pairwise": pairwise, "raymarch": raymarch, "laser_fused": laser_fused}
 
     def run(name, fn, *args, **kwargs):
         t0 = time.perf_counter()
@@ -3349,74 +3229,55 @@ def main():
     by_path = {}
     for name, label in (("main", "serving"), ("ga3c4", "ga3c4_serving"),
                         ("orca4", "orca4_serving")):
-        by_path[name], _ = run(label, phase_serving, label, kernels, serving_path(name))
+        by_path[name], _ = run(label, phase_serving, label, serving_path(name))
     k4 = run("kernels_cadrl_value", phase_cadrl_value)
     k5 = run("kernels_drl_long_conv", phase_drl_long_conv)
     k5["launch_floor_ms"] = k1["launch_floor_ms"]
-    for name in ("cadrl4", "drl2"):
-        cadrl_value.LAUNCHES = drl_long_conv.LAUNCHES = 0
-        by_path[name], _ = run(f"{name}_serving", phase_serving, f"{name}_serving", kernels,
-                               serving_path(name),
-                               laser="raymarch" if name == "drl2" else None,
-                               steps=POLICY_STEPS, dispatches=POLICY_DISPATCHES)
-        steps = (POLICY_DISPATCHES + 1) * POLICY_STEPS
-        want = {"cadrl_value": steps if name == "cadrl4" else 0,
-                "drl_long_conv": steps if name == "drl2" else 0}
-        got = {"cadrl_value": cadrl_value.LAUNCHES, "drl_long_conv": drl_long_conv.LAUNCHES}
-        check(got == want, f"{name}: the policy kernels launched {got}, not {want}")
-        by_path[name] = dict(by_path[name], **got)
-    run("reward_ab", phase_reward_ab, pairwise)
+    for name, launched in (("cadrl4", ("pairwise", "cadrl_value")),
+                           ("drl2", ("pairwise", "raymarch", "drl_long_conv"))):
+        by_path[name], _ = run(f"{name}_serving", phase_serving, f"{name}_serving",
+                               serving_path(name), launched, POLICY_STEPS, POLICY_DISPATCHES)
     run("card_vs_cpu", phase_card_vs_cpu)
     run("policy_card_vs_cpu", phase_policy_card_vs_cpu)
     run("networks", phase_networks)
     by_path["laser_full"], states = run("laser_serving_full", phase_serving,
-                                        "laser_serving_full", kernels,
-                                        serving_path("laser_full"), "raymarch",
-                                        LASER_STEPS, LASER_DISPATCHES)
+                                        "laser_serving_full", serving_path("laser_full"),
+                                        ("pairwise", "raymarch"), LASER_STEPS, LASER_DISPATCHES)
     by_path["laser_fast"], _ = run("laser_serving_fast", phase_serving, "laser_serving_fast",
-                                   kernels, serving_path("laser_fast"), "laser_fused",
+                                   serving_path("laser_fast"), ("pairwise", "laser_fused"),
                                    LASER_STEPS, LASER_DISPATCHES)
     run("fast_vs_full", phase_fast_vs_full, states)
     run("laser_card_vs_cpu", phase_laser_card_vs_cpu)
     profiler = script_module("profile_torch_serving")
     trained = {}
     for name in TRAIN_ITERS:
-        by_path[name], trained[name] = run(name, phase_training, name, kernels, profiler)
+        by_path[name], trained[name] = run(name, phase_training, name, profiler)
     run("kernels_on_training", phase_kernels_on_training)
     run("train_card_vs_cpu", phase_train_card_vs_cpu)
     run("train_deterministic", phase_train_deterministic)
-    by_path.update(run("suite_4agent", phase_suite_4agent, kernels))
+    by_path.update(run("suite_4agent", phase_suite_4agent))
     run("suite_controls", phase_suite_controls)
     run("suite_k1", phase_suite_k1)
     run("gymapi", phase_gymapi)
     ranks = run("parallel_ranks", phase_parallel_ranks)
-    by_path.update(run("parallel_serving", phase_parallel_serving, ranks["gloo"], kernels))
+    by_path.update(run("parallel_serving", phase_parallel_serving, ranks["gloo"]))
     by_path.update(run("parallel_ga3c4", phase_parallel_ga3c4, ranks["gloo"]))
     by_path.update(run("parallel_nccl", phase_parallel_nccl, ranks))
     by_path.update(run("sharded_ppo", phase_sharded_ppo, ranks["gloo"]))
     by_path.update(run("sharded_resume", phase_sharded_resume, ranks))
-    by_path.update(run("scaling", phase_scaling, ranks, kernels))
-    by_path.update(run("strict_parity", phase_strict_parity, kernels))
-    drl_long_conv.LAUNCHES = 0
-    by_path.update(run("eval_drl_long", phase_eval_drl_long, kernels))
-    check(drl_long_conv.LAUNCHES == by_path["eval_drl_long"]["pairwise"],
-          f"eval_drl_long: the convolution kernel launched {drl_long_conv.LAUNCHES} times, "
-          f"not once a step")
-    by_path["eval_drl_long"] = dict(by_path["eval_drl_long"],
-                                    drl_long_conv=drl_long_conv.LAUNCHES)
-    by_path.update(run("eval_trained_net", phase_eval_trained_net, kernels,
+    by_path.update(run("scaling", phase_scaling, ranks))
+    by_path.update(run("strict_parity", phase_strict_parity))
+    by_path.update(run("eval_drl_long", phase_eval_drl_long))
+    by_path.update(run("eval_trained_net", phase_eval_trained_net,
                        trained["train_ga3c4"]))
-    by_path.update(run("reinforce", phase_reinforce, kernels))
-    by_path.update(run("bench_rows", phase_bench_rows, kernels))
+    by_path.update(run("reinforce", phase_reinforce))
+    by_path.update(run("bench_rows", phase_bench_rows))
 
-    for k, name, main_path in ((k1, "pairwise", "main"), (k2, "raymarch", "laser_full"),
-                               (k3, "laser_fused", "laser_fast")):
-        k["launches"] = by_path[main_path][name]
-        k["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
-    k4["launches"] = by_path["cadrl4"]["cadrl_value"]
-    k5["launches"] = by_path["drl2"]["drl_long_conv"]
-    k5["launches_by_path"] = {path: counts["drl_long_conv"] for path, counts in by_path.items()
-                              if "drl_long_conv" in counts}
+    for k, main_path in ((k1, "main"), (k2, "laser_full"), (k3, "laser_fast"), (k4, "cadrl4"),
+                         (k5, "drl2")):
+        source = os.path.basename(k["source"]).removesuffix(".cu")
+        k["launches"] = by_path[main_path][source]
+        k["launches_by_path"] = {path: counts[source] for path, counts in by_path.items()}
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

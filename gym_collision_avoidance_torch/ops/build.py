@@ -1,10 +1,13 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""Build, load, launch and count the hand-written CUDA kernels of ``csrc/``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into ``build/lib<name>-<hash>.so`` inside the package (a directory that
 ``.gitignore`` lists) at first use, then loaded with ``ctypes``.  The hash
-covers the source and the flags, so an edited source is rebuilt.  Nothing
-here runs at import time: the CPU tests import every module without nvcc.
+covers the source and the flags, so an edited source is rebuilt.  A kernel
+wrapper declares each C entry once as a :class:`Kernel`, which launches it
+on the current stream, checks what the launch returns and counts it under
+its source's name (:func:`launch_counts`).  Nothing is built at import time:
+the CPU tests import every module without nvcc.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -29,6 +34,13 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+# every source of csrc/, by name
+SOURCES = tuple(sorted(p.stem for p in CSRC_DIR.glob("*.cu")))
+# each source's launches on the card since import (or since zero_launch_counts)
+_COUNTS: Dict[str, int] = dict.fromkeys(SOURCES, 0)
+# the symbol suffix of a C entry's version for each dtype
+_SUFFIXES = {torch.float32: "_f32", torch.float64: "_f64"}
 
 
 def nvcc_path() -> str:
@@ -85,12 +97,62 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def launch_counts() -> Dict[str, int]:
+    """``{source: launches}`` of every source of ``csrc/``: the launches
+    on the card (never a plain version's calls on the CPU)."""
+    return dict(_COUNTS)
+
+
+def zero_launch_counts() -> None:
+    """Set every source's launch count to 0."""
+    for name in _COUNTS:
+        _COUNTS[name] = 0
+
+
+class Kernel:
+    """The C entry ``<entry>_f32`` / ``<entry>_f64`` of ``csrc/<source>.cu``,
+    whose ``argtypes`` are followed by the ``cudaStream_t`` it launches on
+    and which returns a ``cudaError_t``.
+
+    ``kernel(dtype, *args, device=...)`` launches the entry for ``dtype``
+    on ``device``'s current stream (no synchronise), raises ``RuntimeError``
+    on a launch error and counts one launch under ``source``.  The library
+    is built and loaded at the first launch of each dtype."""
+
+    def __init__(self, source: str, entry: str, argtypes):
+        self.source, self.entry, self.argtypes = source, entry, list(argtypes)
+        self.symbols = {dtype: entry + suffix for dtype, suffix in _SUFFIXES.items()}
+        self.funcs = {}    # dtype -> the loaded entry
+
+    def check(self, dtype) -> None:
+        """Raise ``TypeError`` unless the entry has a version for ``dtype``
+        (nothing is built)."""
+        if dtype not in self.symbols:
+            names = " or ".join(str(d).removeprefix("torch.") for d in self.symbols)
+            raise TypeError(f"the {self.entry} kernel takes {names}, not {dtype}")
+
+    def func(self, dtype):
+        """The loaded entry for ``dtype`` (built and loaded at first use)."""
+        fn = self.funcs.get(dtype)
+        if fn is None:
+            self.check(dtype)
+            fn = getattr(load(self.source), self.symbols[dtype])
+            fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self.funcs[dtype] = fn
+        return fn
+
+    def __call__(self, dtype, *args, device) -> None:
+        err = self.func(dtype)(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.entry} kernel launch failed: cudaError {err}")
+        _COUNTS[self.source] += 1
+
+
 def check_launch_args(fields, device) -> None:
     """Raise unless every ``(name, tensor, dtype, shape)`` of ``fields`` is a
     contiguous tensor of that dtype and shape on ``device``, and ``device``
     is the current CUDA device (a launcher runs there)."""
-    import torch
-
     for name, t, dtype, shape in fields:
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")

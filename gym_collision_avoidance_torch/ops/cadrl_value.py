@@ -15,7 +15,7 @@ the note at the top of the source for why it was added and what bounds it).
   contiguous, and on a launch error; it allocates only its output.
 
 ``models/cadrl.py:forward_raw`` sends a CUDA tensor here and a CPU tensor to
-the plain version.  ``LAUNCHES`` counts launches.
+the plain version.
 """
 
 from __future__ import annotations
@@ -26,9 +26,6 @@ import weakref
 import torch
 
 from gym_collision_avoidance_torch.ops import build
-
-# Kernel launches since import (or since a caller last set it to 0).
-LAUNCHES = 0
 
 # (in, out) of W0, W1, W3, W4: 31 -> 200 -> 200 -> block max -> 100 -> 50 -> 1
 WIDTHS = {"W0": (31, 200), "W1": (200, 200), "W3": (100, 50), "W4": (50, 1)}
@@ -41,8 +38,7 @@ LAYOUT = (("W1", 200 * 8 * 28), ("W0", 31 * 8 * 28), ("b0", 200), ("b1", 200),
           ("inv_std", 32), ("output_std", 4), ("output_avg", 4))
 GROUPS = {"W1": (25, 28), "W0": (25, 28), "W3": (10, 12)}   # (columns, padded width)
 
-_SYMBOLS = {torch.float32: "cadrl_value_f32", torch.float64: "cadrl_value_f64"}
-_FUNCS = {}
+KERNEL = build.Kernel("cadrl_value", "cadrl_value", [ctypes.c_void_p] * 3 + [ctypes.c_int64])
 # net -> (fingerprint of its LAYOUT tensors, those tensors, their packed copy)
 _PACKED = weakref.WeakKeyDictionary()
 
@@ -81,27 +77,15 @@ def packed(net) -> torch.Tensor:
     return hit[2]
 
 
-def _kernel_func(dtype):
-    fn = _FUNCS.get(dtype)
-    if fn is None:
-        fn = getattr(build.load("cadrl_value"), _SYMBOLS[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FUNCS[dtype] = fn
-    return fn
-
-
 def value_net_cuda(net, x: torch.Tensor) -> torch.Tensor:
     """``[...]`` raw values of ``[..., 31]`` rows ``x`` by one launch of the
     kernel on the current stream (no synchronise).  ``net`` is a
     ``CADRLValueNet`` on ``x``'s device."""
-    global LAUNCHES
     for name, shape in WIDTHS.items():
         if tuple(getattr(net, name).shape) != shape:
             raise ValueError(f"the kernel takes {name} of {shape}, got "
                              f"{tuple(getattr(net, name).shape)}")
-    if net.dtype not in _SYMBOLS:
-        raise TypeError(f"the kernel takes a float32 or float64 net, not {net.dtype}")
+    KERNEL.check(net.dtype)
     if x.dim() < 1 or x.shape[-1] != WIDTHS["W0"][0]:
         raise ValueError(f"x must be [..., 31], got {tuple(x.shape)}")
     weights = packed(net)
@@ -111,9 +95,5 @@ def value_net_cuda(net, x: torch.Tensor) -> torch.Tensor:
     rows = y.numel()
     if rows == 0:
         return y
-    err = _kernel_func(net.dtype)(weights.data_ptr(), x.data_ptr(), y.data_ptr(), rows,
-                                  torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"cadrl_value kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    KERNEL(net.dtype, weights.data_ptr(), x.data_ptr(), y.data_ptr(), rows, device=x.device)
     return y

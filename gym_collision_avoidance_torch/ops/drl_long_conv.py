@@ -19,7 +19,7 @@ so at 512 beams it gives the plain version's bits in float32 on the card.
 
 ``models/drl_long.py:DRLLongNet.trunk`` sends a CUDA tensor here when no
 gradient is asked for (:func:`needs_grad`), and everything else to the plain
-version.  ``LAUNCHES`` counts launches.
+version.
 """
 
 from __future__ import annotations
@@ -30,13 +30,10 @@ import torch
 
 from gym_collision_avoidance_torch.ops import build
 
-# Kernel launches since import (or since a caller last set it to 0).
-LAUNCHES = 0
-
 FRAMES, CHANNELS = 3, 32
 
-_SYMBOLS = {torch.float32: "drl_long_conv_f32", torch.float64: "drl_long_conv_f64"}
-_FUNCS = {}
+KERNEL = build.Kernel("drl_long_conv", "drl_long_conv",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2)
 
 
 def out_len(L: int) -> int:
@@ -58,24 +55,12 @@ def drl_long_conv_plain(net, x: torch.Tensor) -> torch.Tensor:
     return torch.relu(net.conv2(torch.relu(net.conv1(x))))
 
 
-def _kernel_func(dtype):
-    fn = _FUNCS.get(dtype)
-    if fn is None:
-        fn = getattr(build.load("drl_long_conv"), _SYMBOLS[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FUNCS[dtype] = fn
-    return fn
-
-
 def drl_long_conv_cuda(net, x: torch.Tensor) -> torch.Tensor:
     """:func:`drl_long_conv_plain` of ``[B, 3, L]`` scans ``x`` (L >= 3) by
     one launch of the kernel on the current stream (no synchronise).
     ``net`` is a ``DRLLongNet`` on ``x``'s device."""
-    global LAUNCHES
     dtype = net.dtype
-    if dtype not in _SYMBOLS:
-        raise TypeError(f"the kernel takes a float32 or float64 net, not {dtype}")
+    KERNEL.check(dtype)
     if x.dim() != 3 or x.shape[1] != FRAMES or x.shape[2] < 3:
         raise ValueError(f"x must be [B, {FRAMES}, L] with L >= 3, got {tuple(x.shape)}")
     B, _, L = x.shape
@@ -90,10 +75,6 @@ def drl_long_conv_cuda(net, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((B, CHANNELS, out_len(L)), dtype=dtype, device=x.device)
     if B == 0:
         return y
-    err = _kernel_func(dtype)(x.data_ptr(), c1.weight.data_ptr(), c1.bias.data_ptr(),
-                              c2.weight.data_ptr(), c2.bias.data_ptr(), y.data_ptr(), B, L,
-                              torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"drl_long_conv kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    KERNEL(dtype, x.data_ptr(), c1.weight.data_ptr(), c1.bias.data_ptr(),
+           c2.weight.data_ptr(), c2.bias.data_ptr(), y.data_ptr(), B, L, device=x.device)
     return y

@@ -32,7 +32,7 @@ is the window-span guard, which has no beam axis.
 Three pieces: :func:`beam_compacted_plain` (plain PyTorch), the CUDA kernel
 ``csrc/laser_fused.cu`` (bitwise equal to it on the card), and the wrapper
 :func:`beam_compacted`: CPU tensors -> plain version, CUDA tensors -> the
-kernel or an error.  ``LAUNCHES`` counts kernel launches.
+kernel or an error.
 """
 
 from __future__ import annotations
@@ -51,11 +51,8 @@ from gym_collision_avoidance_torch.ops.raymarch import (
     LASER_RANGE_RESOLUTION,
 )
 
-# Kernel launches since import (or since a caller last set it to 0).
-LAUNCHES = 0
-
-_SYMBOLS = {torch.float32: "laser_fused_f32", torch.float64: "laser_fused_f64"}
-_FUNCS = {}
+KERNEL = build.Kernel("laser_fused", "laser_fused", [ctypes.c_void_p] * 16 + [ctypes.c_int64]
+                      + [ctypes.c_int] * 7 + [ctypes.c_double] * 6)
 
 
 def consts(cfg, dtype):
@@ -156,17 +153,6 @@ def beam_compacted_plain(pos_e, gi_e, gj_e, rsq_e, cos_a, sin_a, gi_d, gj_d, irs
     return val.reshape(E, Ae, L), overflow.reshape(E, Ae, L)
 
 
-def _kernel_func(dtype):
-    fn = _FUNCS.get(dtype)
-    if fn is None:
-        fn = getattr(build.load("laser_fused"), _SYMBOLS[dtype])
-        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int64] + [ctypes.c_int] * 7
-                       + [ctypes.c_double] * 6 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FUNCS[dtype] = fn
-    return fn
-
-
 def beam_compacted_cuda(pos_e, gi_e, gj_e, rsq_e, cos_a, sin_a, gi_d, gj_d, irsq_d,
                         relx, rely, rel2, ro2, span_ok, cfg, Wn, Cs):
     """Launch the CUDA kernel on the current stream (no synchronise).
@@ -174,10 +160,8 @@ def beam_compacted_cuda(pos_e, gi_e, gj_e, rsq_e, cos_a, sin_a, gi_d, gj_d, irsq
     The kernel's per-warp wedge pre-screen takes each block's beams in the
     sensor's order: angles rising by less than pi over 32 beams, as
     ``obs/sensors.py:beam_angles`` plus a heading gives them."""
-    global LAUNCHES
     dtype = pos_e.dtype
-    if dtype not in _SYMBOLS:
-        raise TypeError(f"pos_e must be float32 or float64, got {dtype}")
+    KERNEL.check(dtype)
     if pos_e.dim() != 3 or pos_e.shape[-1] != 2:
         raise ValueError(f"pos_e must be [E, Ae, 2], got {tuple(pos_e.shape)}")
     if Cs < 1:
@@ -203,14 +187,8 @@ def beam_compacted_cuda(pos_e, gi_e, gj_e, rsq_e, cos_a, sin_a, gi_d, gj_d, irsq
     H, W, oi, oj, inv_cell, res, inv_res, t_max = consts(cfg, dtype)
     out = torch.empty((E, Ae, L), dtype=dtype, device=device)
     ovf = torch.empty((E, Ae, L), dtype=torch.bool, device=device)
-    err = _kernel_func(dtype)(
-        *(t.data_ptr() for _, t, _, _ in fields), out.data_ptr(), ovf.data_ptr(),
-        E * Ae, L, B, S, Cs, Wn, H, W, oi, oj, inv_cell, res, inv_res, t_max,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"laser_fused kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    KERNEL(dtype, *(t.data_ptr() for _, t, _, _ in fields), out.data_ptr(), ovf.data_ptr(),
+           E * Ae, L, B, S, Cs, Wn, H, W, oi, oj, inv_cell, res, inv_res, t_max, device=device)
     return out, ovf
 
 

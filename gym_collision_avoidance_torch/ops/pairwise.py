@@ -18,8 +18,8 @@ Port of the Pallas TPU kernel ``gym_collision_avoidance_tpu/ops/pairwise.py``
 Both launch the hand-written CUDA kernel ``csrc/pairwise.cu`` (see the note
 at its top for what bounds it and its exactness rules), bitwise equal to the
 plain versions on the card.  A wrapper sends a CPU tensor to the plain
-version and a CUDA tensor to the kernel, or raises.  ``LAUNCHES`` counts
-launches of both entries.
+version and a CUDA tensor to the kernel, or raises.  Launches of both
+entries count under ``pairwise`` (``ops.launch_counts``).
 """
 
 from __future__ import annotations
@@ -32,14 +32,10 @@ import torch
 from gym_collision_avoidance_torch.core.maths import sqrt_rn
 from gym_collision_avoidance_torch.ops import build
 
-# Kernel launches since import (or since a caller last set it to 0).
-LAUNCHES = 0
-
-_SYMBOLS = {torch.float32: "pairwise_collisions_f32",
-            torch.float64: "pairwise_collisions_f64"}
-_REWARD_SYMBOLS = {torch.float32: "pairwise_rewards_f32",
-                   torch.float64: "pairwise_rewards_f64"}
-_FUNCS = {}
+COLLISIONS = build.Kernel("pairwise", "pairwise_collisions",
+                          [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int])
+REWARDS = build.Kernel("pairwise", "pairwise_rewards",
+                       [ctypes.c_void_p] * 14 + [ctypes.c_int64] + [ctypes.c_int] * 3)
 _CTYPES = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
 
@@ -132,18 +128,6 @@ def pairwise_rewards_plain(pos, radius, valid, is_at_goal, was_at_goal_already,
     return collision, nearest, reward, latched
 
 
-def _kernel_func(dtype, rewards=False):
-    fn = _FUNCS.get((dtype, rewards))
-    if fn is None:
-        fn = getattr(build.load("pairwise"), (_REWARD_SYMBOLS if rewards else _SYMBOLS)[dtype])
-        ints = [ctypes.c_int] * (3 if rewards else 2)     # A, (P,) lanes
-        fn.argtypes = [ctypes.c_void_p] * (14 if rewards else 5) + [ctypes.c_int64, *ints,
-                                                                    ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FUNCS[dtype, rewards] = fn
-    return fn
-
-
 def lanes_for(num_agents):
     """Threads that share one (env, i) row in the kernel: the largest power
     of two <= A / 4 (at least 1, at most 32), so that each thread takes
@@ -169,26 +153,18 @@ def pairwise_collisions_cuda(pos, radius, valid, lanes=0):
     """Launch the CUDA kernel on the current stream (no synchronise).
     ``lanes`` threads share a row (0: :func:`lanes_for`'s choice; 1 is one
     thread a row)."""
-    global LAUNCHES
     if pos.dim() != 3 or pos.shape[-1] != 2:
         raise ValueError(f"pos must be [E, A, 2], got {tuple(pos.shape)}")
     E, A = pos.shape[:2]
     lanes = _lanes(lanes, A)
-    if pos.dtype not in _SYMBOLS:
-        raise TypeError(f"pos must be float32 or float64, got {pos.dtype}")
+    COLLISIONS.check(pos.dtype)
     build.check_launch_args([("pos", pos, pos.dtype, (E, A, 2)),
                              ("radius", radius, pos.dtype, (E, A)),
                              ("valid", valid, torch.bool, (E, A))], pos.device)
     collision = torch.empty((E, A), dtype=torch.bool, device=pos.device)
     nearest = torch.empty((E, A), dtype=pos.dtype, device=pos.device)
-    err = _kernel_func(pos.dtype)(
-        pos.data_ptr(), radius.data_ptr(), valid.data_ptr(),
-        collision.data_ptr(), nearest.data_ptr(), E, A, lanes,
-        torch.cuda.current_stream(pos.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"pairwise_collisions kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    COLLISIONS(pos.dtype, pos.data_ptr(), radius.data_ptr(), valid.data_ptr(),
+               collision.data_ptr(), nearest.data_ptr(), E, A, lanes, device=pos.device)
     return collision, nearest
 
 
@@ -211,13 +187,11 @@ def pairwise_rewards_cuda(pos, radius, valid, is_at_goal, was_at_goal_already,
     synchronise).  ``past_actions`` is read in place: it must be the
     contiguous ``[E, A, P, 2]`` leaf.  ``lanes`` as for
     :func:`pairwise_collisions_cuda`."""
-    global LAUNCHES
     if pos.dim() != 3 or pos.shape[-1] != 2:
         raise ValueError(f"pos must be [E, A, 2], got {tuple(pos.shape)}")
     E, A = pos.shape[:2]
     lanes = _lanes(lanes, A)
-    if pos.dtype not in _REWARD_SYMBOLS:
-        raise TypeError(f"pos must be float32 or float64, got {pos.dtype}")
+    REWARDS.check(pos.dtype)
     if past_actions.dim() != 4 or past_actions.shape[2] < 1:
         raise ValueError(f"past_actions must be [E, A, P, 2], got {tuple(past_actions.shape)}")
     P = past_actions.shape[2]
@@ -235,17 +209,12 @@ def pairwise_rewards_cuda(pos, radius, valid, is_at_goal, was_at_goal_already,
     nearest = torch.empty((E, A), dtype=pos.dtype, device=pos.device)
     reward = torch.empty((E, A), dtype=pos.dtype, device=pos.device)
     latched = torch.empty((E, A), dtype=torch.bool, device=pos.device)
-    err = _kernel_func(pos.dtype, rewards=True)(
-        pos.data_ptr(), radius.data_ptr(), valid.data_ptr(), is_at_goal.data_ptr(),
-        was_at_goal_already.data_ptr(), was_in_collision_already.data_ptr(),
-        in_collision.data_ptr(), past_actions.data_ptr(),
-        None if wall is None else wall.data_ptr(), ctypes.addressof(consts),
-        collision.data_ptr(), nearest.data_ptr(), reward.data_ptr(), latched.data_ptr(),
-        E, A, P, lanes, torch.cuda.current_stream(pos.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"pairwise_rewards kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    REWARDS(pos.dtype, pos.data_ptr(), radius.data_ptr(), valid.data_ptr(),
+            is_at_goal.data_ptr(), was_at_goal_already.data_ptr(),
+            was_in_collision_already.data_ptr(), in_collision.data_ptr(),
+            past_actions.data_ptr(), None if wall is None else wall.data_ptr(),
+            ctypes.addressof(consts), collision.data_ptr(), nearest.data_ptr(),
+            reward.data_ptr(), latched.data_ptr(), E, A, P, lanes, device=pos.device)
     return collision, nearest, reward, latched
 
 

@@ -26,7 +26,7 @@ Three pieces:
   hit (``tests/test_torch_raymarch_band.py`` models it on the CPU);
 * :func:`raymarch` -- the wrapper ``laserscan_sparse`` calls on its full
   pass.  A CPU tensor goes to the plain version; a CUDA tensor goes to
-  the kernel, or the wrapper raises.  ``LAUNCHES`` counts kernel launches.
+  the kernel, or the wrapper raises.
 
 The beams' cosines and sines are inputs, computed once by PyTorch, so the
 kernel and the plain version read the same bits.  Disc tables carry the
@@ -49,11 +49,8 @@ LASER_MAX_RANGE = 6.0
 # len(np.arange(0, max_range, resolution)), LaserScanSensor.py:32-39
 LASER_NUM_RANGE_SAMPLES = len(np.arange(0.0, LASER_MAX_RANGE, LASER_RANGE_RESOLUTION))
 
-# Kernel launches since import (or since a caller last set it to 0).
-LAUNCHES = 0
-
-_SYMBOLS = {torch.float32: "raymarch_f32", torch.float64: "raymarch_f64"}
-_FUNCS = {}
+KERNEL = build.Kernel("raymarch", "raymarch", [ctypes.c_void_p] * 12 + [ctypes.c_int64]
+                      + [ctypes.c_int] * 6 + [ctypes.c_double] * 4)
 
 
 def range_samples(dtype, device) -> torch.Tensor:
@@ -118,23 +115,10 @@ def raymarch_plain(pos_e, cos_a, sin_a, gi_e, gj_e, rsq_e, gi, gj, rsq, static_c
                        gi[:, None, :], gj[:, None, :], rsq[:, None, :], static_cells, cfg)
 
 
-def _kernel_func(dtype):
-    fn = _FUNCS.get(dtype)
-    if fn is None:
-        fn = getattr(build.load("raymarch"), _SYMBOLS[dtype])
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 6
-                       + [ctypes.c_double] * 4 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FUNCS[dtype] = fn
-    return fn
-
-
 def raymarch_cuda(pos_e, cos_a, sin_a, gi_e, gj_e, rsq_e, gi, gj, rsq, static_cells, cfg):
     """Launch the CUDA kernel on the current stream (no synchronise)."""
-    global LAUNCHES
     dtype = pos_e.dtype
-    if dtype not in _SYMBOLS:
-        raise TypeError(f"pos_e must be float32 or float64, got {dtype}")
+    KERNEL.check(dtype)
     if pos_e.dim() != 3 or pos_e.shape[-1] != 2:
         raise ValueError(f"pos_e must be [E, Ae, 2], got {tuple(pos_e.shape)}")
     E, Ae = pos_e.shape[:2]
@@ -152,17 +136,14 @@ def raymarch_cuda(pos_e, cos_a, sin_a, gi_e, gj_e, rsq_e, gi, gj, rsq, static_ce
     rsamples = range_samples(dtype, pos_e.device)
     inv_cell = map_grid.reciprocal(cfg.map_grid_cell_size, dtype)
     out = torch.empty((E, Ae, L), dtype=dtype, device=pos_e.device)
-    err = _kernel_func(dtype)(
-        pos_e.data_ptr(), cos_a.data_ptr(), sin_a.data_ptr(), gi_e.data_ptr(),
+    KERNEL(
+        dtype, pos_e.data_ptr(), cos_a.data_ptr(), sin_a.data_ptr(), gi_e.data_ptr(),
         gj_e.data_ptr(), rsq_e.data_ptr(), gi.data_ptr(), gj.data_ptr(), rsq.data_ptr(),
         static_cells.data_ptr(), rsamples.data_ptr(), out.data_ptr(),
         E, Ae, A, L, static_cells.shape[0], H, W, oi, oj, inv_cell,
         cfg.map_grid_cell_size / LASER_RANGE_RESOLUTION,    # range samples per cell
-        torch.cuda.current_stream(pos_e.device).cuda_stream,
+        device=pos_e.device,
     )
-    if err != 0:
-        raise RuntimeError(f"raymarch kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
     return out
 
 

@@ -10,6 +10,7 @@ RVO (``policies/rvo.py``) and DRL-Long (``policies/drl_long.py``).
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping
 
 import numpy as np
@@ -49,10 +50,6 @@ LEARNING_POLICIES = (LEARNING, LEARNING_GA3C)
 # Policies with is_still_learning=True (the "learning" done mode).
 STILL_LEARNING_POLICIES = (LEARNING, LEARNING_GA3C)
 
-# Internal policies of later slices -> the ROADMAP item that ports them
-# (none is left).
-UNPORTED_POLICIES = {}
-
 
 def ga3c_actions_table(dtype=np.float64) -> np.ndarray:
     """The 11-entry discrete action grid of GA3C-CADRL
@@ -70,6 +67,12 @@ def carrl_actions_table(dtype=np.float64) -> np.ndarray:
     a[:, 0] = 1.0
     a[:, 1] = np.linspace(-np.pi / 6, np.pi / 6, 11)
     return a
+
+
+@functools.lru_cache(maxsize=8)
+def _carrl_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """:func:`carrl_actions_table` on the device, made once per (dtype, device)."""
+    return torch.as_tensor(carrl_actions_table(), dtype=dtype, device=device)
 
 
 def noncoop_kernel(state, cfg, params):
@@ -97,8 +100,6 @@ INTERNAL_KERNELS = {
 
 def internal_kernel(pid: int):
     """The kernel of internal policy ``pid``."""
-    if pid in UNPORTED_POLICIES:
-        raise NotImplementedError(f"policy id {pid}: {UNPORTED_POLICIES[pid]}")
     kernel = INTERNAL_KERNELS.get(pid)
     if kernel is None:
         raise NotImplementedError(f"internal policy id {pid} has no kernel")
@@ -123,11 +124,11 @@ def map_external_actions(state, ext_actions, cfg):
     out = torch.where((pid == LEARNING)[..., None], learn, out)
 
     idx = torch.clamp(ext[..., 0].to(torch.int32), 0, 10).long()
-    ga3c = torch.as_tensor(ga3c_actions_table(), dtype=dtype, device=ext.device)[idx]
-    ga3c = torch.stack([ga3c[..., 0] * state.pref_speed, ga3c[..., 1]], dim=-1)
-    out = torch.where((pid == LEARNING_GA3C)[..., None], ga3c, out)
+    grid = ga3c._actions_table(dtype, ext.device)[idx]
+    grid = torch.stack([grid[..., 0] * state.pref_speed, grid[..., 1]], dim=-1)
+    out = torch.where((pid == LEARNING_GA3C)[..., None], grid, out)
 
-    carrl = torch.as_tensor(carrl_actions_table(), dtype=dtype, device=ext.device)[idx]
+    carrl = _carrl_table(dtype, ext.device)[idx]
     return torch.where((pid == CARRL)[..., None], carrl, out)
 
 

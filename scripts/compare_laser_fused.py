@@ -76,13 +76,13 @@ def main():
     from gym_collision_avoidance_torch.harness import paths
     from gym_collision_avoidance_torch.ops import build, laser_fused
 
-    this = laser_fused._kernel_func(torch.float32)
+    this = laser_fused.KERNEL.func(torch.float32)
     other = build_other(args.other, build)
     other.argtypes, other.restype = this.argtypes, this.restype
     band = smoke.band_model("laser_fused")
 
     def run_with(fn, call):
-        laser_fused._FUNCS[torch.float32] = fn
+        laser_fused.KERNEL.funcs[torch.float32] = fn
         return laser_fused.beam_compacted_cuda(*call)
 
     fast = paths.laser_config(True)
@@ -106,7 +106,7 @@ def main():
                 times[name].append(smoke.graph_ms(lambda: run_with(fn, call)))
             result[key] = {"S": call[6].shape[-1], "B": call[6].shape[2], **times}
     finally:
-        laser_fused._FUNCS[torch.float32] = this
+        laser_fused.KERNEL.funcs[torch.float32] = this
     ptxas = {"other": ptxas_report(args.other, build),
              "this": ptxas_report(str(build.CSRC_DIR / "laser_fused.cu"), build)}
     print(json.dumps({"compare_laser_fused": result, "other": args.other, "ptxas": ptxas,

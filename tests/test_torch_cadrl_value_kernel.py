@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from gym_collision_avoidance_torch import EnvConfig, init_state
+from gym_collision_avoidance_torch import EnvConfig, init_state, ops
 from gym_collision_avoidance_torch.models import cadrl
 from gym_collision_avoidance_torch.ops import cadrl_value
 from gym_collision_avoidance_torch.policies import cadrl as cadrl_policy
@@ -42,15 +42,15 @@ def _rows(net, seed, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cpu_tensor_takes_the_plain_version(dtype, monkeypatch):
-    monkeypatch.setattr(cadrl_value, "LAUNCHES", 0)
+def test_cpu_tensor_takes_the_plain_version(dtype):
+    before = ops.launch_counts()["cadrl_value"]
     net = cadrl.load_params(dtype=dtype, device="cpu")
     x = _rows(net, 0, (2, 4, 47))
     got = cadrl.forward_raw(net, x)
     assert got.shape == (2, 4, 47) and got.dtype == dtype
     assert torch.equal(got, cadrl.forward_raw_plain(net, x))
     assert torch.equal(net.forward_raw(x), got)
-    assert cadrl_value.LAUNCHES == 0
+    assert ops.launch_counts()["cadrl_value"] == before
     with pytest.raises(ValueError, match="no CADRL value net"):
         cadrl.forward_raw(net, x.to("meta"))
 

@@ -23,7 +23,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from gym_collision_avoidance_torch import EnvConfig, init_state
+from gym_collision_avoidance_torch import EnvConfig, init_state, ops
 from gym_collision_avoidance_torch.models import drl_long
 from gym_collision_avoidance_torch.ops import drl_long_conv
 from gym_collision_avoidance_torch.policies import drl_long as drl_long_policy
@@ -74,7 +74,7 @@ def test_out_len_is_conv1d_s(L):
 
 
 def test_cpu_tensor_launches_nothing(monkeypatch):
-    monkeypatch.setattr(drl_long_conv, "LAUNCHES", 0)
+    before = ops.launch_counts()["drl_long_conv"]
 
     def refused(net, x):
         raise AssertionError("a CPU tensor reached the kernel's wrapper")
@@ -84,7 +84,7 @@ def test_cpu_tensor_launches_nothing(monkeypatch):
     x = _scans(1, 4, 512, torch.float32)
     out = drl_long.forward(net, x, torch.ones(4, 2), torch.zeros(4, 2))
     assert out.shape == (4, 2) and torch.isfinite(out).all()
-    assert drl_long_conv.LAUNCHES == 0
+    assert ops.launch_counts()["drl_long_conv"] == before
 
 
 def test_a_gradient_keeps_autograd():

@@ -53,6 +53,51 @@ def test_chip_smoke_imports_no_jax():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+def _declared_kernels():
+    """Every ``build.Kernel`` that a module of ``ops/`` declares."""
+    import importlib
+
+    from gym_collision_avoidance_torch.ops import build
+
+    mods = [importlib.import_module(f"gym_collision_avoidance_torch.ops.{p.stem}")
+            for p in build.PACKAGE_DIR.joinpath("ops").glob("*.py")]
+    return [k for m in mods for k in vars(m).values() if isinstance(k, build.Kernel)]
+
+
+def test_launch_counts_are_keyed_by_the_csrc_sources():
+    """One count a ``csrc/*.cu``, each declared kernel's source among them,
+    and a count of 0 launches on the CPU."""
+    from gym_collision_avoidance_torch import ops
+
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    csrc = os.path.join(repo_root, "gym_collision_avoidance_torch", "csrc")
+    stems = {name[:-3] for name in os.listdir(csrc) if name.endswith(".cu")}
+    assert set(ops.launch_counts()) == stems
+    assert {k.source for k in _declared_kernels()} == stems
+    ops.zero_launch_counts()
+    assert ops.launch_counts() == dict.fromkeys(stems, 0)
+
+
+def test_kernel_refuses_a_dtype_it_lacks_before_building(monkeypatch):
+    """A dtype without a symbol raises ``TypeError`` from the launcher, with
+    no build, no load and no count, so it needs no nvcc."""
+    from gym_collision_avoidance_torch import ops
+    from gym_collision_avoidance_torch.ops import build
+
+    def refused(name):
+        raise AssertionError(f"{name} was built or loaded")
+
+    monkeypatch.setattr(build, "load", refused)
+    counts = ops.launch_counts()
+    for kernel in _declared_kernels():
+        with pytest.raises(TypeError, match="float32 or float64"):
+            kernel.check(torch.float16)
+        with pytest.raises(TypeError, match=f"the {kernel.entry} kernel takes"):
+            kernel(torch.float16, 0, device=torch.device("cpu"))
+        assert torch.float16 not in kernel.funcs
+    assert ops.launch_counts() == counts
+
+
 def test_launcher_imports_no_jax():
     """``scripts/launch_multihost_torch.py`` runs a rank of the distributed
     rollout on the CPU without importing jax or the JAX package."""
@@ -269,7 +314,6 @@ def test_policy_ids_6_and_8_are_ported():
     assert registry.internal_kernel(registry.RVO) is rvo.rvo_kernel
     assert registry.internal_kernel(registry.DRL_LONG) is drl_long.drl_long_kernel
     assert registry.POLICY_NAMES["CADRL"] == 7 and registry.POLICY_NAMES["drllong"] == 9
-    assert registry.UNPORTED_POLICIES == {}
     with pytest.raises(NotImplementedError, match="no kernel"):
         registry.internal_kernel(registry.EXTERNAL)
 

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from gym_collision_avoidance_torch import EnvConfig, init_state
+from gym_collision_avoidance_torch import EnvConfig, init_state, ops
 from gym_collision_avoidance_torch.maps import grid as tgrid
 from gym_collision_avoidance_torch.obs import sensors as tsens
 from gym_collision_avoidance_torch.ops import laser_fused, raymarch
@@ -74,11 +74,11 @@ def _bitwise(a, b):
 def test_k2_bitwise_equals_plain(cuda_device, dtype, with_map, ego_idx):
     cfg, state, cells = _setup(dtype, cuda_device, 1, with_map=with_map)
     calls = []
-    before = raymarch.LAUNCHES
+    before = ops.launch_counts()["raymarch"]
     with capture(raymarch, "raymarch_cuda", calls):
         out = tsens.laserscan_sparse(state, cfg, cells, ego_idx=ego_idx)
     torch.cuda.synchronize()
-    assert raymarch.LAUNCHES == before + 1 and len(calls) == 1
+    assert ops.launch_counts()["raymarch"] == before + 1 and len(calls) == 1
     ref = raymarch.raymarch_plain(*calls[0])
     assert _bitwise(out, ref)
     assert (ref < 6.0).sum() > 50
@@ -94,11 +94,11 @@ def test_k2_bitwise_equals_plain(cuda_device, dtype, with_map, ego_idx):
 def test_k3_bitwise_equals_plain(cuda_device, dtype, route):
     cfg, state, cells = _setup(dtype, cuda_device, 2, **route)
     calls = []
-    before = laser_fused.LAUNCHES
+    before = ops.launch_counts()["laser_fused"]
     with capture(laser_fused, "beam_compacted_cuda", calls):
         tsens.laserscan_sparse(state, cfg, cells, return_overflow=True)
     torch.cuda.synchronize()
-    assert laser_fused.LAUNCHES == before + 1 and len(calls) == 1
+    assert ops.launch_counts()["laser_fused"] == before + 1 and len(calls) == 1
     out, ovf = laser_fused.beam_compacted_cuda(*calls[0])
     ref, ref_ovf = laser_fused.beam_compacted_plain(*calls[0])
     torch.cuda.synchronize()

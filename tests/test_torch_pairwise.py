@@ -22,6 +22,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from gym_collision_avoidance_torch import ops
 from gym_collision_avoidance_torch.ops import pairwise as tpair
 from gym_collision_avoidance_tpu.env import step as jstep
 from gym_collision_avoidance_tpu.ops import pairwise as jpair
@@ -146,8 +147,8 @@ def test_plain_propagates_nan_like_jax():
 
 def test_wrapper_routes_cpu_to_plain_without_counting():
     pos, radius, valid = (torch.from_numpy(x) for x in _inputs(4, 4, 4, np.float32))
-    before = tpair.LAUNCHES
+    before = ops.launch_counts()["pairwise"]
     got = tpair.pairwise_collisions(pos, radius, valid)
     want = tpair.pairwise_collisions_plain(pos, radius, valid)
-    assert tpair.LAUNCHES == before
+    assert ops.launch_counts()["pairwise"] == before
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from gym_collision_avoidance_torch import EnvConfig
+from gym_collision_avoidance_torch import EnvConfig, ops
 from gym_collision_avoidance_torch.ops import pairwise as tpair
 
 # wiggly turns on, so every branch of the reward chain is taken
@@ -55,10 +55,10 @@ def _inputs(seed, E, A, dtype, device, nan):
 ])
 def test_cuda_kernel_bitwise_equals_plain(cuda_device, dtype, E, A, nan):
     args = _inputs(5, E, A, dtype, cuda_device, nan)
-    before = tpair.LAUNCHES
+    before = ops.launch_counts()["pairwise"]
     coll, near = tpair.pairwise_collisions(*args)
     torch.cuda.synchronize()
-    assert tpair.LAUNCHES == before + 1
+    assert ops.launch_counts()["pairwise"] == before + 1
     ref_coll, ref_near = tpair.pairwise_collisions_plain(*args)
     assert torch.equal(coll, ref_coll)
     assert torch.equal(torch.isnan(near), torch.isnan(ref_near))
@@ -132,7 +132,7 @@ def test_cuda_reward_kernel_bitwise_equals_plain(cuda_device, dtype, E, A, nan, 
     """Every layout (``lanes`` threads a row; 0 is the kernel's choice) gives
     the plain version's bits, in one launch."""
     args = _reward_inputs(9, E, A, dtype, cuda_device, nan, wall)
-    before = tpair.LAUNCHES
+    before = ops.launch_counts()["pairwise"]
     if lanes:
         got = tpair.pairwise_rewards_cuda(*args, lanes=lanes)
         _assert_bitwise(tpair.pairwise_collisions_cuda(*args[:3], lanes=lanes),
@@ -141,7 +141,7 @@ def test_cuda_reward_kernel_bitwise_equals_plain(cuda_device, dtype, E, A, nan, 
     else:
         got = tpair.pairwise_rewards(*args)
     torch.cuda.synchronize()
-    assert tpair.LAUNCHES == before + 1
+    assert ops.launch_counts()["pairwise"] == before + 1
     want = tpair.pairwise_rewards_plain(*args)
     _assert_bitwise(got, want)
     assert got[3] is not args[6]

@@ -31,6 +31,7 @@ import torch
 
 import _torch_parity as tp
 from gym_collision_avoidance_torch import EnvConfig as TCfg
+from gym_collision_avoidance_torch import ops
 from gym_collision_avoidance_torch.maps import grid as tgrid
 from gym_collision_avoidance_torch.ops import pairwise as tpair
 from gym_collision_avoidance_tpu import EnvConfig as JCfg
@@ -228,10 +229,10 @@ def test_wrapper_routes_cpu_to_plain_without_counting():
         jcfg = JCfg(dtype="float32", **CONFIGS["clip_low"])
         leaves = _leaves(jcfg, 4, 8, 4)
     args = _port_args(leaves, TCfg(dtype="float32", **CONFIGS["clip_low"]))
-    before = tpair.LAUNCHES
+    before = ops.launch_counts()["pairwise"]
     got = tpair.pairwise_rewards(*args)
     want = tpair.pairwise_rewards_plain(*args)
-    assert tpair.LAUNCHES == before
+    assert ops.launch_counts()["pairwise"] == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     # the latch is a new tensor: the state's flags stay as they were

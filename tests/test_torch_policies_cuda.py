@@ -41,13 +41,13 @@ import numpy as np
 import pytest
 import torch
 
-from gym_collision_avoidance_torch import EnvConfig
+from gym_collision_avoidance_torch import EnvConfig, ops
 from gym_collision_avoidance_torch.env import autoreset
 from gym_collision_avoidance_torch import init_state
 from gym_collision_avoidance_torch.harness import paths
 from gym_collision_avoidance_torch.harness.serving import AutoresetServer
 from gym_collision_avoidance_torch.models import cadrl, drl_long, ga3c_cadrl
-from gym_collision_avoidance_torch.ops import cadrl_value, drl_long_conv, orca
+from gym_collision_avoidance_torch.ops import drl_long_conv, orca
 from gym_collision_avoidance_torch.policies import cadrl as cadrl_policy
 from gym_collision_avoidance_torch.policies import registry, rvo
 from gym_collision_avoidance_torch.scenarios import random_cases
@@ -204,10 +204,10 @@ TILE_EDGES = [1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 257]
 def test_cadrl_value_kernel_matches_plain(cuda_device, dtype, rows):
     net = cadrl.load_params(dtype=dtype, device=cuda_device)
     x = _value_rows(net, rows, rows)
-    before = cadrl_value.LAUNCHES
+    before = ops.launch_counts()["cadrl_value"]
     got = cadrl.forward_raw(net, x)
     torch.cuda.synchronize()
-    assert cadrl_value.LAUNCHES == before + 1
+    assert ops.launch_counts()["cadrl_value"] == before + 1
     want = cadrl.forward_raw_plain(net, x)
     assert got.shape == (rows,) and got.dtype == dtype
     assert torch.isfinite(got).all()
@@ -284,10 +284,10 @@ def test_cadrl4_step_launches_the_value_kernel_once(cuda_device):
     server = paths.serving_path("cadrl4", cuda_device).server(
         num_envs=256, steps_per_dispatch=1, device=cuda_device)
     torch.cuda.synchronize()
-    before = cadrl_value.LAUNCHES
+    before = ops.launch_counts()["cadrl_value"]
     server.dispatch()
     torch.cuda.synchronize()
-    assert cadrl_value.LAUNCHES == before + 1
+    assert ops.launch_counts()["cadrl_value"] == before + 1
 
 
 @pytest.mark.cuda
@@ -339,10 +339,10 @@ def _scans(seed, B, L, dtype, device):
 def test_drl_long_conv_kernel_matches_plain(cuda_device, dtype, B, L):
     net = _conv_net(L, dtype, cuda_device)
     x = _scans(B, B, L, dtype, cuda_device)
-    before = drl_long_conv.LAUNCHES
+    before = ops.launch_counts()["drl_long_conv"]
     got = drl_long_conv.drl_long_conv_cuda(net, x)
     torch.cuda.synchronize()
-    assert drl_long_conv.LAUNCHES == before + 1
+    assert ops.launch_counts()["drl_long_conv"] == before + 1
     want = drl_long_conv.drl_long_conv_plain(net, x)
     assert got.shape == want.shape == (B, 32, drl_long_conv.out_len(L)) and got.dtype == dtype
     assert torch.isfinite(got).all()
@@ -378,10 +378,10 @@ def test_drl_long_forward_launches_the_conv_kernel_once(cuda_device):
     x = _scans(1, 4096, 512, torch.float32, cuda_device)
     goal = torch.ones(4096, 2, device=cuda_device)
     speed = torch.zeros(4096, 2, device=cuda_device)
-    before = drl_long_conv.LAUNCHES
+    before = ops.launch_counts()["drl_long_conv"]
     mean = drl_long.forward(net, x, goal, speed)
     torch.cuda.synchronize()
-    assert drl_long_conv.LAUNCHES == before + 1
+    assert ops.launch_counts()["drl_long_conv"] == before + 1
     assert mean.shape == (4096, 2) and torch.isfinite(mean).all()
     # a net that requires gradients (the PPO trainer's) stays on cuDNN and autograd
     trainer = drl_long.init_actor_critic_params(512, seed=2, device=cuda_device)
@@ -389,7 +389,7 @@ def test_drl_long_forward_launches_the_conv_kernel_once(cuda_device):
     m, _log_std, value = drl_long.forward_actor_critic(trainer, x, goal, speed)
     (m.sum() + value.sum()).backward()
     torch.cuda.synchronize()
-    assert drl_long_conv.LAUNCHES == before + 1
+    assert ops.launch_counts()["drl_long_conv"] == before + 1
     assert trainer.conv1.weight.grad.abs().sum() > 0
 
 
@@ -409,7 +409,7 @@ def test_drl_long4_step_launches_the_conv_kernel_once(cuda_device):
         device=cuda_device, sensors=tuple(world["sensors"]),
         states_in_obs=tuple(world["states_in_obs"]), static_map=static, static_cells=cells)
     torch.cuda.synchronize()
-    before = drl_long_conv.LAUNCHES
+    before = ops.launch_counts()["drl_long_conv"]
     server.dispatch()
     torch.cuda.synchronize()
-    assert drl_long_conv.LAUNCHES == before + 2
+    assert ops.launch_counts()["drl_long_conv"] == before + 2
