@@ -30,7 +30,14 @@ kernel either) is held against its plain version (cuDNN's convolutions, bias
 adds and ReLUs) at ragged row counts and scan lengths in both dtypes,
 bitwise in float32 at 512 beams, and timed at ``drl_long4.serve16k``'s rows
 a step beside its operations bound; the drl2 and eval_drl_long paths must
-launch it once a step.  Then it drives the port's paths through
+launch it once a step.  SA-CADRL's lookahead kernel
+(``csrc/cadrl_lookahead.cu``, which replaces no Pallas kernel either) is held
+against its plain version (``_lookahead_plain``) bitwise in float32 and
+within 1e-12 in float64 at ragged agent counts, A = 2 to 10, at
+``cadrl4.serve16k``'s ``[16384, 4]`` and on the hand-built edge cases of
+``tests/test_torch_cadrl_lookahead_kernel.py``, and timed there beside its
+bytes bound and the plain chain; it must launch once a step wherever the
+value-net kernel does, on every path.  Then it drives the port's paths through
 ``AutoresetServer``, each with the kernel launch counts set to 0 just before
 and read just after:
 
@@ -944,6 +951,66 @@ def phase_cadrl_value():
             "bound_by": main["bound_by"], "library_ms": None, "by_shape": shapes}
 
 
+# SA-CADRL's lookahead kernel: cadrl4.serve16k's agents a step (E = 16384 x 4)
+LOOKAHEAD_SHAPE = (16384, 4)
+
+
+def lookahead_bytes(n, itemsize=4):
+    """Bytes one launch must move for ``n`` ego agents: s10, 3 others and
+    their actions (46 elements) and 3 presence bytes in, ``dt_forward`` out,
+    and a row each of 47 candidates: 31 encoded, speed, heading, reward,
+    ``d_next`` and 3 flag bytes out."""
+    return n * (47 * itemsize + 3) + n * 47 * (35 * itemsize + 3)
+
+
+def phase_cadrl_lookahead():
+    """Hold ``csrc/cadrl_lookahead.cu`` against ``_lookahead_plain`` on the
+    card by ``tests/test_torch_cadrl_lookahead_kernel.py``'s ``_hold`` (every
+    output bitwise in float32 and within 1e-12 in float64) at that file's
+    ``SHAPES`` (cadrl4.serve16k's [16384, 4], ragged last blocks, A = 2 to
+    10) and on its hand-built edge cases, keeping the largest |kernel -
+    plain| of each dtype; time it and the plain chain (CUDA-graph replays) at
+    LOOKAHEAD_SHAPE beside its bytes bound."""
+    from gym_collision_avoidance_torch.ops import cadrl_lookahead
+    from gym_collision_avoidance_torch.policies import cadrl as cadrl_policy
+
+    tests = test_module("test_torch_cadrl_lookahead_kernel")
+    worst = {"float32": 0.0, "float64": 0.0}
+
+    def hold(dtype, what, cfg, inputs):
+        name = str(dtype)[6:]
+        err = tests._hold(inputs, cfg, f"{name} {what}")
+        worst[name] = max(worst[name], err)
+        print(f"cadrl_lookahead {name} {what}: held, within {err:.3g} of the plain route",
+              flush=True)
+
+    for dtype, E, A, invalid in tests.SHAPES:
+        cfg, st = tests._states(E * 31 + A, E, A, DEVICE, dtype, invalid)
+        hold(dtype, f"[{E}, {A}]", cfg, tests._inputs(st, cfg))
+    for dtype in (torch.float32, torch.float64):
+        hold(dtype, "edge cases", tests.EnvConfig(dtype=str(dtype)[6:]),
+             tests._edge_inputs(dtype, DEVICE))
+
+    E, A = LOOKAHEAD_SHAPE
+    cfg, st = tests._states(25, E, A, DEVICE)
+    inputs = tests._inputs(st, cfg)
+    ms = graph_ms(lambda: cadrl_lookahead.lookahead_cuda(*inputs), inner=5)
+    plain_ms = graph_ms(lambda: cadrl_policy._lookahead_plain(*inputs, cfg), inner=1)
+    bound_ms = lookahead_bytes(E * A) / HBM_BYTES_PER_S * 1e3
+    shape = {"agents": E * A, "rows": E * A * 47, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": "bytes", "roofline_pct": 100.0 * bound_ms / ms}
+    del inputs, st
+    torch.cuda.empty_cache()
+    print(json.dumps({"kernel": "cadrl_lookahead", "library_ms": None, "by_shape": [shape]}),
+          flush=True)
+    return {"name": "cadrl_lookahead", "route": "cuda",
+            "source": "gym_collision_avoidance_torch/csrc/cadrl_lookahead.cu",
+            "replaces": None, "entry": "_cadrl_prepare (cadrl4.serve16k's agents a step)",
+            "launches": None, "max_abs_err": max(worst.values()),
+            "max_abs_err_by_dtype": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None, "by_shape": [shape]}
+
+
 # ---------------------------------------------------------------- laser path
 
 @contextlib.contextmanager
@@ -997,16 +1064,21 @@ def laser_states(cfg, E, seed, device, A=A_LASER, odd=False):
                       heading=rng.uniform(-np.pi, np.pi, (E, A)), valid=valid, device=device)
 
 
-def band_model(kernel):
-    """``tests/test_torch_{kernel}_band.py``: the plain PyTorch model of K2's
-    (``raymarch``) or K3's (``laser_fused``) band design, its seeded edge
-    cases and its work count (it imports no JAX)."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        f"test_torch_{kernel}_band.py")
-    spec = importlib.util.spec_from_file_location(f"{kernel}_band", path)
+def test_module(name):
+    """``tests/<name>.py`` as a module (the files this script loads import
+    no JAX)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def band_model(kernel):
+    """``tests/test_torch_{kernel}_band.py``: the plain PyTorch model of K2's
+    (``raymarch``) or K3's (``laser_fused``) band design, its seeded edge
+    cases and its work count."""
+    return test_module(f"test_torch_{kernel}_band")
 
 
 def k2_bound(args, out, band):
@@ -3232,8 +3304,10 @@ def main():
         by_path[name], _ = run(label, phase_serving, label, serving_path(name))
     k4 = run("kernels_cadrl_value", phase_cadrl_value)
     k5 = run("kernels_drl_long_conv", phase_drl_long_conv)
-    k5["launch_floor_ms"] = k1["launch_floor_ms"]
-    for name, launched in (("cadrl4", ("pairwise", "cadrl_value")),
+    k6 = run("kernels_cadrl_lookahead", phase_cadrl_lookahead)
+    for k in (k5, k6):
+        k["launch_floor_ms"] = k1["launch_floor_ms"]
+    for name, launched in (("cadrl4", ("pairwise", "cadrl_value", "cadrl_lookahead")),
                            ("drl2", ("pairwise", "raymarch", "drl_long_conv"))):
         by_path[name], _ = run(f"{name}_serving", phase_serving, f"{name}_serving",
                                serving_path(name), launched, POLICY_STEPS, POLICY_DISPATCHES)
@@ -3273,12 +3347,19 @@ def main():
     by_path.update(run("reinforce", phase_reinforce))
     by_path.update(run("bench_rows", phase_bench_rows))
 
-    for k, main_path in ((k1, "main"), (k2, "laser_full"), (k3, "laser_fast"), (k4, "cadrl4"),
-                         (k5, "drl2")):
+    kernels = [k1, k2, k3, k4, k5, k6]
+    for k, main_path in zip(kernels, ("main", "laser_full", "laser_fast", "cadrl4", "drl2",
+                                      "cadrl4")):
         source = os.path.basename(k["source"]).removesuffix(".cu")
         k["launches"] = by_path[main_path][source]
         k["launches_by_path"] = {path: counts[source] for path, counts in by_path.items()}
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    # SA-CADRL runs no_constr wherever it runs on these paths: one lookahead
+    # launch a step wherever its value net launches once
+    for path, counts in by_path.items():
+        check(counts["cadrl_lookahead"] == counts["cadrl_value"],
+              f"{path}: cadrl_lookahead launched {counts['cadrl_lookahead']} times, "
+              f"cadrl_value {counts['cadrl_value']}")
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -162,6 +162,8 @@ def check_launch_args(fields, device) -> None:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if device.type != "cuda":
+        raise ValueError(f"tensors are on {device}; the kernels run on a CUDA device")
     if device.index != torch.cuda.current_device():
         raise ValueError(f"tensors are on {device}, the current device is "
                          f"cuda:{torch.cuda.current_device()}")

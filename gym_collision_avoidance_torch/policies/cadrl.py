@@ -8,6 +8,10 @@ with a validity mask in ``rotate_constr`` mode), propagates itself and the
 others one lookahead step, prunes colliding candidates, adds shaped rewards
 (and the passing-side penalty), encodes every propagated state in its
 agent-centric frame and takes the argmax of reward plus discounted value.
+On the card, in ``no_constr`` mode with no passing side, everything after
+the other selection up to the encoded batch is one launch of
+``csrc/cadrl_lookahead.cu`` (:func:`_takes_kernel`); elsewhere it is
+:func:`_lookahead_plain`, the plain version the kernel is held to.
 
 The JAX package writes this for one ego agent and vmaps it over agents and
 envs; here every function carries the batch axes ``[E, A]`` (ego agent h on
@@ -33,6 +37,7 @@ from gym_collision_avoidance_torch.core import maths
 from gym_collision_avoidance_torch.maps.grid import reciprocal
 from gym_collision_avoidance_torch.models import cadrl as cadrl_net
 from gym_collision_avoidance_torch.obs.sensors import _lex_rank
+from gym_collision_avoidance_torch.ops import cadrl_lookahead
 
 PARAMS_KEY = "cadrl"
 
@@ -443,6 +448,16 @@ def _swap_slot0(rows, present, closest):
     return _take(rows, perm), torch.gather(present, -1, perm)
 
 
+def _takes_kernel(device, cfg) -> bool:
+    """Whether ``_cadrl_prepare`` runs the lookahead as one launch of
+    ``csrc/cadrl_lookahead.cu``: on a CUDA device in ``no_constr`` mode with
+    no passing side (cadrl4's configuration and the ``EnvConfig``
+    default).  The CPU, ``rotate_constr`` and the passing sides take
+    :func:`_lookahead_plain`, the version the kernel is held to."""
+    return (device.type == "cuda" and cfg.cadrl_mode == "no_constr"
+            and cfg.cadrl_passing_side == "none")
+
+
 def _cadrl_prepare(state, cfg):
     """Everything before the value net, for every ego agent: other
     selection, candidates, collision pruning, rewards, propagation and the
@@ -451,6 +466,19 @@ def _cadrl_prepare(state, cfg):
     with ``[E, A]`` in front."""
     s10 = _ego_s10(state)
     others_s10, others_action, present, num_present = _select_others(state, cfg)
+    if _takes_kernel(s10.device, cfg):
+        states_nn, aux = cadrl_lookahead.lookahead_cuda(s10, others_s10, others_action, present)
+    else:
+        states_nn, aux = _lookahead_plain(s10, others_s10, others_action, present, cfg)
+    aux.update(pref=s10[..., 5], heading_h=state.heading,
+               heading_ego_h=state.heading_ego_frame, num_present=num_present)
+    return states_nn, aux
+
+
+def _lookahead_plain(s10, others_s10, others_action, present, cfg):
+    """The lookahead of ``_cadrl_prepare`` after the other selection, in
+    plain PyTorch: ``(states_nn [E, A, N, 31], aux)`` with the aux fields
+    of the candidates and ``dt_forward``."""
     # the others' velocity from their filtered action (:974-983)
     others_s10 = torch.cat([others_s10[..., 0:2],
                             (others_action[..., 0] * torch.cos(others_action[..., 1]))[..., None],
@@ -511,10 +539,6 @@ def _cadrl_prepare(state, cfg):
         "d_next": d_next,
         "dist_col": states_nn[..., 0],
         "dt_forward": dt_forward,
-        "pref": pref,
-        "heading_h": state.heading,
-        "heading_ego_h": state.heading_ego_frame,
-        "num_present": num_present,
     }
     return states_nn, aux
 
