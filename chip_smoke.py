@@ -17,9 +17,9 @@ bounds.  Every kernel row also carries the launch floor: the device time of
 one ``fill_`` of K1's output bytes, the least a launch costs in a CUDA
 graph.  K1 is held and timed alone and with its reward epilogue (the env
 step's whole reward stage, the one launch ``_compute_rewards`` makes), each
-in its layout and one thread a row, at ``[16384, 4]``, ``[256, 20]`` and
-``[512, 40]``, beside its plain versions.  Every in-path capture below
-holds K1's four outputs (collision, nearest gap, reward, latched
+in its layout and one thread a row, at ``[16384, 4]``, ``[256, 20]``,
+``[512, 40]`` and ``[4096, 6]``, beside its plain versions.  Every in-path
+capture below holds K1's four outputs (collision, nearest gap, reward, latched
 ``in_collision``) bitwise.  SA-CADRL's value-net kernel (``csrc/cadrl_value.cu``,
 which replaces no Pallas kernel) is held against its plain version at tile
 edges in both dtypes and bitwise at cadrl4's row counts, and timed at
@@ -55,7 +55,9 @@ and read just after:
   the 3 m circle with the ``no_constr`` value net, E = 4096 (K1);
 * drl2: ``scripts/eval_drl_long.py``'s world, a DRL-Long agent (the shipped
   ``drl_long_2agent_rvo_tpu`` net) against an RVO agent on the empty
-  16 x 16 m map, 512 beams, the full pass, E = 4096 (kernels K1 and K2).
+  16 x 16 m map, 512 beams, the full pass, E = 4096 (kernels K1 and K2);
+* sarl6: the benchmark's ``sarl6`` configuration, 6 SARL agents with the
+  seeded checkpoint, E = 4096 (K1 alone: the attention net is plain PyTorch).
 
 It trains with the port's PPO trainer on the three training paths of
 ``harness/paths.py``, each at its recipe's width, the kernel counts set to 0
@@ -337,9 +339,10 @@ def moved_bytes(*tensors):
 
 # K1's shapes: the main path, the laser path (with its map's wall mask),
 # LargeNumAgents (scripts/bench_all.py's ga3c40), and, for the layout sweep,
-# ga3c4's and cadrl4's [4096, 4] and the 2-agent training paths' [1024, 2]
+# ga3c4's and cadrl4's [4096, 4], the 2-agent training paths' [1024, 2] and
+# sarl6's [4096, 6]
 K1_SHAPES = ((E_MAIN, A_MAIN, False), (E_LASER, A_LASER, True), (512, 40, False),
-             (4096, 4, False), (1024, 2, False))
+             (4096, 4, False), (1024, 2, False), (4096, 6, False))
 K1_LANES = (1, 2, 4, 8, 16, 32)     # threads a row, in the layout sweep
 
 
@@ -393,7 +396,8 @@ def phase_kernels(pairwise):
     shape, as eager calls."""
     worst = 0.0
     cases = [(torch.float32, E_MAIN, A_MAIN, False), (torch.float32, 512, 40, False),
-             (torch.float64, 64, 4, False), (torch.float32, 64, 4, True)]
+             (torch.float32, 4096, 6, False), (torch.float64, 64, 4, False),
+             (torch.float32, 64, 4, True)]
     for dtype, E, A, nan in cases:
         args = pairwise_inputs(7, E, A, dtype, DEVICE, nan)
         coll, near = pairwise.pairwise_collisions(*args)
@@ -406,7 +410,8 @@ def phase_kernels(pairwise):
         print(f"K1 {str(dtype)[6:]} E={E} A={A} nan={nan}: bitwise equal", flush=True)
     reward_cases = [(torch.float32, E_MAIN, A_MAIN, False, False),
                     (torch.float32, E_LASER, A_LASER, False, True),
-                    (torch.float32, 512, 40, False, False), (torch.float32, 64, 2, False, True),
+                    (torch.float32, 512, 40, False, False), (torch.float32, 4096, 6, False, False),
+                    (torch.float32, 64, 2, False, True),
                     (torch.float64, 64, 4, False, True), (torch.float64, 512, 40, False, False),
                     (torch.float32, 64, 4, True, True), (torch.float64, 64, 4, True, False)]
     for dtype, E, A, nan, wall in reward_cases:
@@ -3308,7 +3313,8 @@ def main():
     for k in (k5, k6):
         k["launch_floor_ms"] = k1["launch_floor_ms"]
     for name, launched in (("cadrl4", ("pairwise", "cadrl_value", "cadrl_lookahead")),
-                           ("drl2", ("pairwise", "raymarch", "drl_long_conv"))):
+                           ("drl2", ("pairwise", "raymarch", "drl_long_conv")),
+                           ("sarl6", ("pairwise",))):
         by_path[name], _ = run(f"{name}_serving", phase_serving, f"{name}_serving",
                                serving_path(name), launched, POLICY_STEPS, POLICY_DISPATCHES)
     run("card_vs_cpu", phase_card_vs_cpu)

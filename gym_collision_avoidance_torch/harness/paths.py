@@ -25,7 +25,12 @@
   route (wedge culling to 9 discs, 12-sample windows, 4 beam slots);
 * ``ga3c40``: ``bench_ga3c40``'s LargeNumAgents world, 40 GA3C-CADRL agents
   on ``circle_scenario(40, radius=10.0, agent_radius=0.3)`` as a one-case
-  pool, 19 observed slots sorted closest last, 512 envs.
+  pool, 19 observed slots sorted closest last, 512 envs;
+* ``sarl6``: the benchmark's ``sarl6`` configuration, 6 SARL agents (the
+  port's own policy, ``policies/sarl.py``) with the seeded checkpoint, 5
+  observed slots, float32, evaluate mode, 4096 envs and the benchmark
+  traffic's pool size, 256 cases (from seed 0 here, from the run's seed
+  there).
 
 The fixed-scenario rows of ``scripts/bench_all.py`` (``bench_config``: one
 circle scenario broadcast to every env, stepped with no reset, so that the
@@ -78,7 +83,8 @@ from gym_collision_avoidance_torch.policies import registry
 from gym_collision_avoidance_torch.scenarios import presets, random_cases
 from gym_collision_avoidance_torch.train.ppo import PPOConfig, PPOTrainer
 
-PATHS = ("main", "ga3c4", "orca4", "cadrl4", "drl2", "laser_full", "laser_fast", "ga3c40")
+PATHS = ("main", "ga3c4", "orca4", "cadrl4", "drl2", "laser_full", "laser_fast", "ga3c40",
+         "sarl6")
 TRAIN_PATHS = ("train_ga3c4", "train_drl2", "train_mlp2")
 # The evaluation campaign's 4-agent cells (harness/experiments.py:run_suite_cell:
 # the 500 frozen cases, float32, EnvConfig.evaluate): name -> policy.
@@ -181,7 +187,7 @@ def ga3c40_scenario():
 def serving_path(name: str, device="cuda") -> ServingPath:
     """The path ``name`` (one of :data:`PATHS`) with its weights and map on
     ``device``."""
-    from gym_collision_avoidance_torch.models import cadrl, drl_long, ga3c_cadrl
+    from gym_collision_avoidance_torch.models import cadrl, drl_long, ga3c_cadrl, sarl
 
     if name not in PATHS:
         raise ValueError(f"unknown path {name!r}; one of {PATHS}")
@@ -207,6 +213,11 @@ def serving_path(name: str, device="cuda") -> ServingPath:
                            np.array([registry.DRL_LONG, registry.RVO], np.int32),
                            {"drl_long": drl_long.load_params(device=device)}, 4096,
                            LASER_SENSORS, DRL2_OBS, static, cells)
+    if name == "sarl6":
+        cfg = EnvConfig(dtype="float32", done_mode="evaluate", max_num_other_agents_observed=5)
+        return ServingPath(name, cfg, random_cases.scenario_pool(256, 6, seed=0, side_length=4.0),
+                           np.full(6, registry.SARL, np.int32),
+                           {"sarl": sarl.load_params(device=device)}, 4096)
     if name == "ga3c40":
         return ServingPath(name, ga3c_config(), _one_case(ga3c40_scenario()),
                            np.full(40, registry.GA3C_CADRL, np.int32),

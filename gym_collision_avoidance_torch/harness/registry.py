@@ -4,8 +4,9 @@
 Shrunk to the checkpoints actually shipped with the reference (the
 reference registry, ``experiments/src/env_utils.py:102-492``, also lists
 dozens of paper-ablation entries with hard-coded EC2 paths that don't
-resolve anywhere -- those are dead and not reproduced).  The fourteen
-names, their sensor settings and checkpoints are the JAX package's.
+resolve anywhere -- those are dead and not reproduced).  The first
+fourteen names, their sensor settings and checkpoints are the JAX
+package's; ``"SARL"`` is the port's own (``policies/sarl.py``).
 """
 
 from __future__ import annotations
@@ -131,6 +132,9 @@ POLICY_SPECS: Dict[str, PolicySpec] = {
     "RVO": PolicySpec(policy_id=policies.RVO),
     "noncoop": PolicySpec(policy_id=policies.NONCOOP),
     "static": PolicySpec(policy_id=policies.STATIC),
+    # the port's own: CrowdNav's SARL (arXiv:1809.08835) on the seeded
+    # checkpoint (models/sarl.py); it reads the state, not the sensor
+    "SARL": PolicySpec(policy_id=policies.SARL, needs_params=("sarl",)),
 }
 
 
@@ -146,8 +150,9 @@ def load_params(*param_keys: str, device=None, dtype="float32") -> dict:
     package.  ``"cadrl[:<name>]"`` loads an SA-CADRL value net in ``dtype``,
     the env's float type: the JAX loader gives float64 weights under x64 and
     float32 without it, and the port's value net runs in one dtype.
+    ``"sarl"`` loads SARL's seeded value net in ``dtype`` too.
     """
-    from gym_collision_avoidance_torch.models import cadrl, ga3c_cadrl
+    from gym_collision_avoidance_torch.models import cadrl, ga3c_cadrl, sarl
 
     params = {}
     for key in set(param_keys):
@@ -161,6 +166,8 @@ def load_params(*param_keys: str, device=None, dtype="float32") -> dict:
             name = key.split(":", 1)[1] if ":" in key else "no_constr"
             params["cadrl"] = cadrl.load_params(cadrl.CHECKPOINTS[name], dtype=dtype,
                                                 device=device)
+        elif key == "sarl":
+            params["sarl"] = sarl.load_params(dtype=dtype, device=device)
         else:
             raise KeyError(f"unknown param set {key}")
     return params

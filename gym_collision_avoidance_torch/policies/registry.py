@@ -5,7 +5,9 @@ Every internal policy is a kernel ``(state, cfg, params) -> [E, A, 2]`` over
 the whole batch; the per-agent choice is a masked select on ``policy_id``.
 Every policy of the JAX package is ported: NonCoop, Static, the external
 mappers, GA3C-CADRL (``policies/ga3c.py``), SA-CADRL (``policies/cadrl.py``),
-RVO (``policies/rvo.py``) and DRL-Long (``policies/drl_long.py``).
+RVO (``policies/rvo.py``) and DRL-Long (``policies/drl_long.py``).  SARL
+(``policies/sarl.py``) is the port's own: the JAX package has no such
+policy.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from gym_collision_avoidance_torch.policies import cadrl, drl_long, ga3c, rvo
+from gym_collision_avoidance_torch.policies import cadrl, drl_long, ga3c, rvo, sarl
 
 # -- policy type ids (state.policy_id values), as in the JAX package --------
 EXTERNAL = 0       # envs/policies/ExternalPolicy.py (identity passthrough)
@@ -29,6 +31,7 @@ GA3C_CADRL = 6     # envs/policies/GA3CCADRLPolicy.py (internal NN)
 CADRL = 7          # envs/policies/CADRLPolicy.py (internal NN + lookahead)
 RVO = 8            # envs/policies/RVOPolicy.py (internal ORCA)
 DRL_LONG = 9       # policies/drl_long.py of the JAX package (internal CNN)
+SARL = 10          # policies/sarl.py (internal attention value net + lookahead)
 
 POLICY_NAMES: Mapping[str, int] = {
     "external": EXTERNAL,
@@ -41,6 +44,7 @@ POLICY_NAMES: Mapping[str, int] = {
     "CADRL": CADRL,
     "RVO": RVO,
     "drllong": DRL_LONG,
+    "SARL": SARL,
 }
 
 # Policies that receive their action from the caller of env_step.
@@ -95,6 +99,7 @@ INTERNAL_KERNELS = {
     CADRL: cadrl.cadrl_kernel,
     RVO: rvo.rvo_kernel,
     DRL_LONG: drl_long.drl_long_kernel,
+    SARL: sarl.sarl_kernel,
 }
 
 

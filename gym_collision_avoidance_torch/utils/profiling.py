@@ -14,7 +14,10 @@ serving path's spans, nested by time on the host thread:
 - ``gca.policy``, ``gca.dynamics``, ``gca.rewards``, ``gca.observe``: the
   action selection, dynamics, rewards (K1) and sensing of ``env.step.env_step``
   (whose other callers, the trainer's rollout and the suites, gain them too);
-- ``gca.reset``: the reset pick of an auto-reset step.
+- ``gca.reset``: the reset pick of an auto-reset step;
+- ``gca.sarl.lookahead``, ``gca.sarl.net``: inside ``gca.policy``, SARL's
+  candidates, pair features and rewards, and its value net
+  (``policies/sarl.py``).
 """
 
 from __future__ import annotations

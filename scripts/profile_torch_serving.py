@@ -18,7 +18,7 @@ card's ``nvidia-smi`` name and power limit go beside the numbers.
 
 ``--config`` names one of the paths of
 ``gym_collision_avoidance_torch/harness/paths.py`` (main, ga3c4, orca4,
-cadrl4, drl2, laser_full, laser_fast, ga3c40), which says what each runs and
+cadrl4, drl2, laser_full, laser_fast, ga3c40, sarl6), which says what each runs and
 its default env count.  ``gemm_device_ms_per_step`` sums the
 matrix-product kernels (cuBLAS and cuDNN names: gemm, xmma, gemv);
 ``conv_device_ms_per_step`` the convolution kernels (names with conv,

@@ -277,11 +277,15 @@ def test_outcome_records_and_lockstep_steps():
 
 
 def test_policy_specs_and_configs_match_jax():
-    assert list(treg.POLICY_SPECS) == list(jreg.POLICY_SPECS) and len(treg.POLICY_SPECS) == 14
+    """The JAX package's fourteen specs, then the port's own SARL."""
+    assert list(treg.POLICY_SPECS) == list(jreg.POLICY_SPECS) + ["SARL"]
+    assert len(jreg.POLICY_SPECS) == 14
+    assert treg.POLICY_SPECS["SARL"].policy_id == 10
     base_t, base_j = TCfg.evaluate(dtype="float32"), JCfg.evaluate(dtype="float32")
     shared = {f.name for f in dataclasses.fields(base_t)} & {
         f.name for f in dataclasses.fields(base_j)}
-    for name, spec in treg.POLICY_SPECS.items():
+    for name in jreg.POLICY_SPECS:
+        spec = treg.POLICY_SPECS[name]
         assert dataclasses.asdict(spec) == dataclasses.asdict(jreg.POLICY_SPECS[name]), name
         ct, cj = treg.cfg_for_policy(name, base_t), jreg.cfg_for_policy(name, base_j)
         for field in shared:

@@ -102,7 +102,7 @@ def test_float32_loop_stays_finite():
 
 
 @pytest.mark.parametrize("name", ["main", "ga3c4", "orca4", "cadrl4", "drl2", "laser_full",
-                                  "laser_fast", "ga3c40"])
+                                  "laser_fast", "ga3c40", "sarl6"])
 def test_serving_paths_run_on_the_cpu(name):
     """Each path of ``harness/paths.py`` (what ``chip_smoke.py`` and the
     profiling scripts drive) serves two steps of 2 envs on the CPU with
