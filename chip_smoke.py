@@ -37,7 +37,15 @@ within 1e-12 in float64 at ragged agent counts, A = 2 to 10, at
 ``cadrl4.serve16k``'s ``[16384, 4]`` and on the hand-built edge cases of
 ``tests/test_torch_cadrl_lookahead_kernel.py``, and timed there beside its
 bytes bound and the plain chain; it must launch once a step wherever the
-value-net kernel does, on every path.  Then it drives the port's paths through
+value-net kernel does, on every path.  SARL's value-net kernel
+(``csrc/sarl_value.cu``, which replaces no Pallas kernel either) is held
+against its plain version (``forward_raw_plain``) by
+``tests/test_torch_sarl_cuda.py``'s cases (A = 2, 6 and 20, absent others,
+rows with none present, pairs that score exactly 0, equal rows bitwise) and
+at ``sarl6.serve``'s ``[4096 x 6 x 81, 5]`` in both dtypes, and timed on the
+sarl6 path's states beside its operations bound and the plain net; the sarl6
+path must launch it once a step, and no other path.  Then it drives the
+port's paths through
 ``AutoresetServer``, each with the kernel launch counts set to 0 just before
 and read just after:
 
@@ -57,7 +65,7 @@ and read just after:
   ``drl_long_2agent_rvo_tpu`` net) against an RVO agent on the empty
   16 x 16 m map, 512 beams, the full pass, E = 4096 (kernels K1 and K2);
 * sarl6: the benchmark's ``sarl6`` configuration, 6 SARL agents with the
-  seeded checkpoint, E = 4096 (K1 alone: the attention net is plain PyTorch).
+  seeded checkpoint, E = 4096 (K1 and SARL's value-net kernel).
 
 It trains with the port's PPO trainer on the three training paths of
 ``harness/paths.py``, each at its recipe's width, the kernel counts set to 0
@@ -1014,6 +1022,73 @@ def phase_cadrl_lookahead():
             "launches": None, "max_abs_err": max(worst.values()),
             "max_abs_err_by_dtype": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None, "by_shape": [shape]}
+
+
+# SARL's value-net kernel: sarl6.serve's agents a step (E = 4096 x 6), each
+# with 81 candidate rows of 5 others
+SARL_SHAPE = (4096, 6)
+
+
+def phase_sarl_value():
+    """Hold ``csrc/sarl_value.cu`` against ``forward_raw_plain`` on the card
+    by ``tests/test_torch_sarl_cuda.py``'s ``hold_kernel`` (one launch a call,
+    float32 within 1e-5, float64 within 1e-12) at that file's A = 2, 6 and 20,
+    on its zero-score net and at SARL_SHAPE's rows, in both dtypes, keeping
+    the largest |kernel - plain| of each; hold its equal-rows case; time the
+    kernel and the plain net (CUDA-graph replays) on the sarl6 path's states
+    at SARL_SHAPE beside its operations bound, 81 x (5 x 104 100 + 87 000) an
+    agent at 67 TFLOP/s, and its bytes bound."""
+    from gym_collision_avoidance_torch.harness import paths
+    from gym_collision_avoidance_torch.models import sarl
+    from gym_collision_avoidance_torch.ops import sarl_value
+    from gym_collision_avoidance_torch.policies import sarl as sarl_policy
+
+    tests = test_module("test_torch_sarl_cuda")
+    device = torch.device(DEVICE)
+    worst = {"float32": 0.0, "float64": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        seeded = sarl.load_params(dtype=dtype, device=DEVICE)
+        cases = [(f"A={A}", (dtype, 5, A, A)) for A in (2, 6, 20)]
+        cases += [("zero scores", (dtype, 4, 6, 7)),
+                  (str(list(SARL_SHAPE)), (dtype, *SARL_SHAPE, 27))]
+        for what, args in cases:
+            inputs = tests.kernel_inputs(*args, device)
+            net = tests.zero_score_net(dtype, device, inputs) if what == "zero scores" else seeded
+            _, _, err = tests.hold_kernel(net, inputs)
+            check(err <= tests.KERNEL_TOL[dtype], f"sarl_value {name} {what}: differs by {err}")
+            worst[name] = max(worst[name], err)
+            print(f"sarl_value {name} {what}: within {err:.3g} of the plain version", flush=True)
+            del inputs
+            torch.cuda.empty_cache()
+        tests.test_equal_rows_give_equal_bits_wherever_they_sit(device, dtype)
+        print(f"sarl_value {name}: equal rows give equal bits", flush=True)
+
+    path = serving_path("sarl6")
+    state, _ = paths.mid_episode_states(path, SARL_SHAPE[0], 5, DEVICE)
+    pairs, present, self_state, _, _ = sarl_policy._lookahead(state, path.cfg)
+    net = path.params["sarl"]
+    ms = graph_ms(lambda: sarl_value.value_net_cuda(net, pairs, present, self_state), inner=3)
+    plain_ms = graph_ms(lambda: sarl.forward_raw_plain(net, pairs, present, self_state), inner=1)
+    E, A = SARL_SHAPE
+    rows = E * A * 81
+    t_ops = rows * ((A - 1) * 104_100 + 87_000) / F32_FLOPS * 1e3
+    t_bytes = rows * ((A - 1) * 13 + 7) * 4 / HBM_BYTES_PER_S * 1e3
+    shape = {"agents": E * A, "rows": rows, "pairs": rows * (A - 1), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "roofline_pct": 100.0 * max(t_ops, t_bytes) / ms}
+    del pairs, present, self_state, state
+    torch.cuda.empty_cache()
+    print(json.dumps({"kernel": "sarl_value", "library_ms": None, "by_shape": [shape]}),
+          flush=True)
+    return {"name": "sarl_value", "route": "cuda",
+            "source": "gym_collision_avoidance_torch/csrc/sarl_value.cu",
+            "replaces": None, "entry": "forward_raw (sarl6.serve's rows a step)",
+            "launches": None, "max_abs_err": max(worst.values()),
+            "max_abs_err_by_dtype": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": shape["bound_ms"], "bound_by": shape["bound_by"], "library_ms": None,
+            "by_shape": [shape]}
 
 
 # ---------------------------------------------------------------- laser path
@@ -3310,11 +3385,12 @@ def main():
     k4 = run("kernels_cadrl_value", phase_cadrl_value)
     k5 = run("kernels_drl_long_conv", phase_drl_long_conv)
     k6 = run("kernels_cadrl_lookahead", phase_cadrl_lookahead)
-    for k in (k5, k6):
+    k7 = run("kernels_sarl_value", phase_sarl_value)
+    for k in (k5, k6, k7):
         k["launch_floor_ms"] = k1["launch_floor_ms"]
     for name, launched in (("cadrl4", ("pairwise", "cadrl_value", "cadrl_lookahead")),
                            ("drl2", ("pairwise", "raymarch", "drl_long_conv")),
-                           ("sarl6", ("pairwise",))):
+                           ("sarl6", ("pairwise", "sarl_value"))):
         by_path[name], _ = run(f"{name}_serving", phase_serving, f"{name}_serving",
                                serving_path(name), launched, POLICY_STEPS, POLICY_DISPATCHES)
     run("card_vs_cpu", phase_card_vs_cpu)
@@ -3353,9 +3429,9 @@ def main():
     by_path.update(run("reinforce", phase_reinforce))
     by_path.update(run("bench_rows", phase_bench_rows))
 
-    kernels = [k1, k2, k3, k4, k5, k6]
+    kernels = [k1, k2, k3, k4, k5, k6, k7]
     for k, main_path in zip(kernels, ("main", "laser_full", "laser_fast", "cadrl4", "drl2",
-                                      "cadrl4")):
+                                      "cadrl4", "sarl6")):
         source = os.path.basename(k["source"]).removesuffix(".cu")
         k["launches"] = by_path[main_path][source]
         k["launches_by_path"] = {path: counts[source] for path, counts in by_path.items()}

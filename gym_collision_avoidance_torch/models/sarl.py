@@ -23,11 +23,13 @@ Absent others (an invalid agent, one beyond the sensing horizon) are left
 out of the mean and of the softmax's sum; a row with no other pools
 nothing (``m`` and the pooled features zero).
 
-:func:`forward_raw` is plain PyTorch.  It splits the attention's first
+:func:`forward_raw` sends CUDA tensors to one launch of a hand-written
+kernel (``ops/sarl_value.py``, ``csrc/sarl_value.cu``: FP32 FMAs on the CUDA
+cores, every intermediate on chip) and CPU tensors to
+:func:`forward_raw_plain`, plain PyTorch.  Both split the attention's first
 layer into ``W_a e_j + (W_b m + b)``, so that the global state's half is
-computed once a candidate row and not once a pair; the products run in the
-net's dtype, float32 with TF32 off on the card
-(``core.device.resolve_device``).
+computed once a candidate row and not once a pair; the plain products run
+in the net's dtype.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from gym_collision_avoidance_torch.core.device import resolve_device
+from gym_collision_avoidance_torch.ops import sarl_value
 
 PAIR_DIM = 13
 SELF_DIM = 6
@@ -121,8 +124,22 @@ def forward_raw(net: SARLValueNet, pairs, present, self_state):
             others are there.
         self_state: ``[..., 6]`` the rows' rotated ego features.
 
-    Returns ``[...]``, the value net's raw output.
+    Returns ``[...]``, the value net's raw output.  CPU tensors ->
+    :func:`forward_raw_plain`; CUDA tensors -> one launch of the kernel
+    (``ops/sarl_value.py:value_net_cuda``), which raises on inputs of
+    another dtype than the net's or not contiguous, and on more others than
+    a tile holds (128 in float32, 64 in float64).
     """
+    if pairs.device.type == "cpu":
+        return forward_raw_plain(net, pairs, present, self_state)
+    if pairs.device.type == "cuda":
+        return sarl_value.value_net_cuda(net, pairs, present, self_state)
+    raise ValueError(f"no SARL value net for device {pairs.device}")
+
+
+def forward_raw_plain(net: SARLValueNet, pairs, present, self_state):
+    """:func:`forward_raw` in plain PyTorch: one product per layer over
+    every pair or candidate row."""
     lead = self_state.shape[:-1]
     P = pairs.shape[-2]
     x = pairs.reshape(-1, P, PAIR_DIM)

@@ -41,12 +41,14 @@ def test_port_imports_no_jax():
 def test_chip_smoke_imports_no_jax():
     """``chip_smoke.py`` runs on a machine without JAX, and loads K2's and
     K3's band models from ``tests/test_torch_raymarch_band.py`` and
-    ``tests/test_torch_laser_fused_band.py``, and K6's cases from
-    ``tests/test_torch_cadrl_lookahead_kernel.py``."""
+    ``tests/test_torch_laser_fused_band.py``, K6's cases from
+    ``tests/test_torch_cadrl_lookahead_kernel.py`` and K7's from
+    ``tests/test_torch_sarl_cuda.py``."""
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = ("import sys, chip_smoke\n"
             "chip_smoke.band_model('raymarch'); chip_smoke.band_model('laser_fused')\n"
             "chip_smoke.test_module('test_torch_cadrl_lookahead_kernel')\n"
+            "chip_smoke.test_module('test_torch_sarl_cuda')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gym_collision_avoidance_tpu'))\n"
             "assert not bad, bad\nprint('ok')")
